@@ -5,21 +5,27 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
 
   1. device  — card name and power limit
   2. build   — compile csrc/*.cu for sm_90a (or load the cached build)
-  3. K1      — FAST+Shi-Tomasi kernel vs its plain twin on the three
-               752x480 pyramid levels of the bench scene and on 100x300;
+  3. K1      — FAST+Shi-Tomasi kernel vs its plain twin: one launch over
+               the three 752x480 pyramid levels of the bench scene (the
+               main path's call), and one single-image launch on 100x300;
                detect_fast_grid kernel vs plain cell winners
   4. slice   — FrameHandlerMono on 40 frames of the 752x480 plane sequence
                (points-only sync config, default capacities), first in an
-               untimed pass that captures every K2 launch's inputs, then in
-               the timed run; launch counts are read from the timed run
-               alone; per-stage host times
+               untimed pass that captures every K2 launch's inputs (and one
+               align_mixed_atlas call's), then in the timed run; launch
+               counts are read from the timed run alone, and every keyframe
+               detection must launch K1 exactly once; per-stage host times
   5. K2      — the mixed-align GN kernel vs its plain twin on the inputs of
                every launch of the capture pass
   6. profile — 5 more frames with each stage timed between two
                synchronisations, then 5 under torch.profiler: device busy
                share, kernel launches (per frame and per stage), host syncs,
                top device ops
-  7. report  — one JSON line per the kernel report format, the card line,
+  7. timing  — K1's three-level launch (device time, per-call time, bound)
+               and each level alone; K2's device and per-call times at
+               every N of the run; detect_fast_grid's and
+               align_mixed_atlas's per-call times
+  8. report  — one JSON line per the kernel report format, the card line,
                and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero, with no result line, when any phase fails or no CUDA
@@ -78,26 +84,62 @@ def cuda_time_ms(fn, reps=30, inner=20, warmup=5):
     return float(np.median(times))
 
 
-def kernel_device_ms(fn, kernel_name, n=50):
-    """Median device duration of the kernel named kernel_name over n calls
-    of fn, as torch.profiler records it on the card."""
+def _device_records(calls, kernel_name, pad=32):
+    """Durations (us) of the kernel named kernel_name, as torch.profiler
+    records it on the card, for each call of `calls` in order. The last
+    call is run `pad` more times at the end, because the profiler can lose
+    the last few device records of a session; returns the records of
+    `calls` only, or fewer when more were lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+        for f in calls:
+            f()
+        for _ in range(pad):
+            calls[-1]()
         torch.cuda.synchronize()
-    d = [e.time_range.elapsed_us() for e in prof.events()
-         if e.device_type == DeviceType.CUDA and kernel_name in e.name]
-    # the profiler may drop a few device records of a burst
-    if len(d) < n // 2:
-        fail(f"the profiler saw {len(d)} of {n} launches of {kernel_name}")
-    return float(np.median(d)) / 1e3
+    d = [d for _, d in sorted(
+        (e.time_range.start, e.time_range.elapsed_us())
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and kernel_name in e.name)]
+    return d[:len(calls)]
+
+
+def kernel_device_ms(fn, kernel_name, n=50):
+    """Median device duration of the kernel named kernel_name over n calls
+    of fn, as torch.profiler records it on the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        d = _device_records([fn] * n, kernel_name)
+        if len(d) >= n // 2:
+            return float(np.median(d)) / 1e3
+    fail(f"the profiler saw {len(d)} of {n} launches of {kernel_name}")
+
+
+def calls_device_ms(calls, kernel_name, reps=10):
+    """Device time of each call of `calls` (the median of `reps` runs, one
+    call after the other), as torch.profiler records it, from one
+    session."""
+    import torch
+
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    runs = [f for f in calls for _ in range(reps)]
+    for _ in range(3):
+        d = _device_records(runs, kernel_name)
+        # every record is needed to tell the calls apart: else again
+        if len(d) == len(runs):
+            us = np.asarray(d).reshape(len(calls), reps)
+            return [float(x) / 1e3 for x in np.median(us, axis=1)]
+    # records lost inside the session: one session per call
+    return [kernel_device_ms(f, kernel_name, n=2 * reps) for f in calls]
 
 
 def bench_sequence(n_frames, device):
@@ -131,10 +173,14 @@ def phase_k1(imgs0, device):
     rng = np.random.default_rng(0)
     odd = torch.tensor(rng.uniform(0, 255, (100, 300)).astype(np.float32),
                        device=device)
+    before = fs.launches
+    outs = fs.fast_score_levels_cuda(pyr, 10.0)  # the main path's launch
+    if fs.launches != before + 1:
+        fail(f"K1's three levels took {fs.launches - before} launches, not 1")
+    outs.append(fs.fast_score_cuda(odd, 10.0))
     worst_abs = 0.0
     worst_rel = 0.0
-    for img in list(pyr) + [odd]:
-        m_k, s_k = fs.fast_score_cuda(img, 10.0)
+    for img, (m_k, s_k) in zip(list(pyr) + [odd], outs):
         m_p, s_p = fs.fast_score_plain(img, 10.0)
         torch.cuda.synchronize()
         if not bool((m_k == m_p).all()):
@@ -147,8 +193,9 @@ def phase_k1(imgs0, device):
               flush=True)
         worst_abs = max(worst_abs, float(err.max()))
         worst_rel = max(worst_rel, rel)
-    # the score's 8x8 box sum is a direct sum in the kernel and a cumsum in
-    # the plain twin: f32 rounding differs by ~1e-4 relative
+    # the kernel sums each 8x8 box as two pairwise trees (8 rows per column,
+    # then 8 columns across lanes); the plain twin differences f32 cumsums:
+    # the roundings differ by ~1e-4 relative
     if worst_rel > 1e-3:
         fail(f"K1 score relative error {worst_rel} > 1e-3")
     g_k = detection.detect_fast_grid(pyr, cell_size=25, score_threshold=20.0)
@@ -170,6 +217,7 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
     import torch
 
     from plsvo_torch.config import default_config
+    from plsvo_torch.ops import depth_filter, matcher
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
     from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
@@ -181,17 +229,33 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
         cfg.pipeline, has_ls=False, init_ls=False, loba_enabled=False,
         pipelined=False))
     captured = []  # (args, kwargs) of every K2 launch of the capture pass
+    atlas_calls = []  # (args, kwargs) of the reprojection align_mixed_atlas
 
     def capture(args, kwargs):
         captured.append(([a.clone() for a in args], dict(kwargs)))
 
+    def capture_atlas(orig):
+        def wrapped(*a, **k):
+            if not atlas_calls and a[3].shape[0] == cfg.caps.max_fts:
+                atlas_calls.append(([x.clone() if torch.is_tensor(x) else x
+                                     for x in a], dict(k)))
+            return orig(*a, **k)
+        return wrapped
+
     # capture pass: the same frames through a handler of its own, untimed,
     # so that the timed run below carries no capture copies
+    saved = [(m, m.align_mixed_atlas) for m in (matcher, depth_filter)]
+    for m, orig in saved:
+        m.align_mixed_atlas = capture_atlas(orig)
     ma.capture = capture
-    cap_vo = FrameHandlerMono(cam, cfg, device=device)
-    for i in range(n_main):
-        cap_vo.add_image(imgs[i], i / 30.0)
-    ma.capture = None
+    try:
+        cap_vo = FrameHandlerMono(cam, cfg, device=device)
+        for i in range(n_main):
+            cap_vo.add_image(imgs[i], i / 30.0)
+    finally:
+        ma.capture = None
+        for m, orig in saved:
+            m.align_mixed_atlas = orig
     del cap_vo
 
     vo = FrameHandlerMono(cam, cfg, device=device)
@@ -242,8 +306,8 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
         fail(f"ATE {ate} >= 1% of the path length {path}")
     if launches["fast_score"] <= 0 or launches["mixed_align"] <= 0:
         fail(f"a kernel of the path never launched: {launches}")
-    if not k1_at_kf or min(k1_at_kf) <= 0:
-        fail(f"K1 did not launch at a tracked keyframe: {k1_at_kf}")
+    if not k1_at_kf or any(k != 1 for k in k1_at_kf):
+        fail(f"K1 launches per tracked keyframe are {k1_at_kf}, not one each")
     # per-stage host wall time (stage timers of the frame handler) over the
     # same frames as the per-frame ms
     vo.permon.finish()
@@ -255,7 +319,7 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
     print("slice: per-stage host ms (median, mean): " + ", ".join(
         f"{k} {a:.2f}/{b:.2f}" for k, (a, b) in stage_ms.items()), flush=True)
     return dict(vo=vo, launches=launches, n_frames=len(results),
-                captured=captured, ate=ate, path=path,
+                captured=captured, atlas_calls=atlas_calls, ate=ate, path=path,
                 ms_median=float(np.median(tail)),
                 ms_p90=float(np.percentile(tail, 90)))
 
@@ -480,22 +544,24 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     pyr0, k1_abs, k1_rel = phase_k1(imgs[0], device)
-    lvl0 = pyr0[0]
     sl = phase_slice(cam, imgs, gt, device, n_main)
     k2 = phase_k2(sl["captured"])
     phase_profile(sl["vo"], imgs, n_main, n_win, sl["ms_median"])
 
     # ---- timings at the main path's shapes ----
-    H, W = lvl0.shape
-    k1_ms = cuda_time_ms(lambda: fs.fast_score_cuda(lvl0, 10.0))
-    k1_dev = kernel_device_ms(lambda: fs.fast_score_cuda(lvl0, 10.0),
-                              "fast_score_kernel")
-    k1_plain = cuda_time_ms(lambda: fs.fast_score_plain(lvl0, 10.0), reps=10,
-                            inner=5)
-    k1_bound = 1e3 * max(H * W * K1_BYTES_PER_PX / HBM_BYTES_PER_S,
-                         H * W * K1_OPS_PER_PX / F32_OPS_PER_S)
-    k1_by = ("bytes" if H * W * K1_BYTES_PER_PX / HBM_BYTES_PER_S
-             >= H * W * K1_OPS_PER_PX / F32_OPS_PER_S else "operations")
+    from plsvo_torch.ops import detection, feature_align
+
+    px = sum(p.numel() for p in pyr0)
+    levels = [list(p.shape) for p in pyr0]
+    k1_call = lambda: fs.fast_score_levels_cuda(pyr0, 10.0)  # noqa: E731
+    k1_ms = cuda_time_ms(k1_call)
+    k1_dev = kernel_device_ms(k1_call, "fast_score_kernel")
+    k1_plain = cuda_time_ms(lambda: [fs.fast_score_plain(p, 10.0) for p in pyr0],
+                            reps=10, inner=5)
+    k1_bound = 1e3 * max(px * K1_BYTES_PER_PX / HBM_BYTES_PER_S,
+                         px * K1_OPS_PER_PX / F32_OPS_PER_S)
+    k1_by = ("bytes" if px * K1_BYTES_PER_PX / HBM_BYTES_PER_S
+             >= px * K1_OPS_PER_PX / F32_OPS_PER_S else "operations")
     # the reprojection refine's launch (N = max_fts = 192) with the most
     # valid rows
     n_k2 = 192 if 192 in k2 else max(k2)
@@ -513,22 +579,41 @@ def main():
     k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops / F32_OPS_PER_S)
     k2_by = "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S \
         else "operations"
-    print(f"timing: K1 {H}x{W} kernel {k1_ms:.4f} ms per call (device "
-          f"{k1_dev:.4f} ms), plain {k1_plain:.4f} ms, bound {k1_bound:.5f} ms "
-          f"({k1_by}); K2 N={n_k2} kernel {k2_ms:.4f} ms per call (device "
-          f"{k2_dev:.4f} ms), plain {k2_plain:.4f} ms, bound {k2_bound:.6f} ms "
-          f"({k2_by}, {row_iters} active row-iterations)", flush=True)
-    for lvl in pyr0[1:]:
+    print(f"timing: K1 three-level launch {levels} ({px} px) kernel "
+          f"{k1_ms:.4f} ms per call (device {k1_dev:.4f} ms), plain "
+          f"{k1_plain:.4f} ms, bound {k1_bound:.5f} ms ({k1_by}; the kernel "
+          f"runs at {100 * k1_bound / k1_dev:.1f}% of its bound); K2 N={n_k2} kernel "
+          f"{k2_ms:.4f} ms per call (device {k2_dev:.4f} ms), plain "
+          f"{k2_plain:.4f} ms, bound {k2_bound:.6f} ms ({k2_by}, {row_iters} "
+          f"active row-iterations)", flush=True)
+    for lvl in pyr0:
         f1 = lambda: fs.fast_score_cuda(lvl, 10.0)  # noqa: E731
-        print(f"timing: K1 {lvl.shape[0]}x{lvl.shape[1]} kernel "
+        print(f"timing: K1 {lvl.shape[0]}x{lvl.shape[1]} alone: kernel "
               f"{cuda_time_ms(f1):.4f} ms per call (device "
               f"{kernel_device_ms(f1, 'fast_score_kernel'):.4f} ms)", flush=True)
+    # K2's device time depends on the data (the warp leaves once its rows
+    # are inactive): every launch of the run, replayed
+    k2_run = {}
     for n in sorted(k2):
-        a, k = next(c for c in sl["captured"] if c[0][0].shape[0] == n)
+        runs = [c for c in sl["captured"] if c[0][0].shape[0] == n]
+        a, k = runs[0]
         f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
-        print(f"timing: K2 N={n} kernel {cuda_time_ms(f2):.4f} ms per call "
-              f"(device {kernel_device_ms(f2, 'mixed_align_kernel'):.4f} ms)",
+        dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
+                               for a, k in runs], "mixed_align_kernel")
+        k2_run[n] = (float(np.median(dev)), max(dev))
+        print(f"timing: K2 N={n} kernel {cuda_time_ms(f2):.4f} ms per call; "
+              f"device over the run's {len(runs)} launches: median "
+              f"{k2_run[n][0]:.4f} ms, max {k2_run[n][1]:.4f} ms",
               flush=True)
+    det_ms = cuda_time_ms(lambda: detection.detect_fast_grid(
+        pyr0, cell_size=25, score_threshold=20.0), reps=10, inner=5)
+    msg = f"timing: detect_fast_grid (3 levels) {det_ms:.4f} ms per call"
+    if sl["atlas_calls"]:
+        a, k = sl["atlas_calls"][0]
+        al_ms = cuda_time_ms(lambda: feature_align.align_mixed_atlas(*a, **k),
+                             reps=10, inner=5)
+        msg += f"; align_mixed_atlas (N={a[3].shape[0]}) {al_ms:.4f} ms per call"
+    print(msg, flush=True)
 
     nf = sl["n_frames"]
     k2_uv = max(e[2] for e in k2.values())
@@ -537,7 +622,9 @@ def main():
     # score; K2: uv in pixels), "max_err" is the error each kernel is gated
     # on (K1: the score relative to max(|score|, 1); K2: mean_diff,
     # absolute). "ms" is the per-call time, wrapper and launch included;
-    # "kernel_ms" the kernel's own device time.
+    # "kernel_ms" the kernel's own device time (K2: on the launch of N=192
+    # with the most valid rows; "kernel_ms_run_median" and "_max" over all
+    # the run's launches of that N).
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda",
          "source": "plsvo_torch/csrc/fast_score.cu",
@@ -548,7 +635,7 @@ def main():
          "max_err": k1_rel, "max_err_kind": "rel_score",
          "ms": k1_ms, "kernel_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "shape": [H, W]},
+         "shape": levels},
         {"name": "mixed_align", "route": "cuda",
          "source": "plsvo_torch/csrc/mixed_align.cu",
          "replaces": "plsvo_tpu/ops/pallas_align.py:163",
@@ -558,7 +645,8 @@ def main():
          "max_err": k2_md, "max_err_kind": "abs_mean_diff",
          "ms": k2_ms, "kernel_ms": k2_dev, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-         "shape": [n_k2]},
+         "kernel_ms_run_median": k2_run[n_k2][0],
+         "kernel_ms_run_max": k2_run[n_k2][1], "shape": [n_k2]},
     ]}
     print(f"slice summary: ATE {sl['ate']:.6f} m, per-frame ms median "
           f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f}", flush=True)

@@ -32,9 +32,11 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream are void*, every C entry
 # returns the cudaError_t of its launch (0 = success)
 SIGNATURES = {
-    "plsvo_fast_score": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # (image, mask and score pointer tables, (H, W) table, n, thr, stream)
+    "plsvo_fast_score_levels": [_P, _P, _P, _P, _I, _F, _P],
+    # (13 inputs, 3 outputs, N, n_iter, conv_eps, conv_sq, stream)
     "plsvo_mixed_align": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _I, _I, _F, _P],
+                          _P, _P, _P, _P, _I, _I, _F, _F, _P],
 }
 
 _lib = None

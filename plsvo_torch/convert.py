@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from plsvo_torch.config import CapacityConfig, Config, MeshConfig, PipelineConfig
+from plsvo_torch.device import resolve_device
 from plsvo_torch.ops.depth_filter import PointSeeds
 from plsvo_torch.pipeline.state import FrameState, MapState
 
@@ -26,9 +27,10 @@ def _t(a, device):
     return torch.tensor(np.asarray(a), device=device)
 
 
-def frame_state_from_numpy(d: dict, device="cpu") -> FrameState:
+def frame_state_from_numpy(d: dict, device=None) -> FrameState:
     """FrameState from a dict of its fields; `pyr` is a list of (h, w)
     arrays (uploaded to `device`), every other table stays host numpy."""
+    device = resolve_device(device)
     fields = {k: (np.array(v) if isinstance(v, np.ndarray) else v)
               for k, v in d.items() if k != "pyr"}
     return FrameState(pyr=[_t(np.asarray(p, np.float32), device)
@@ -36,9 +38,10 @@ def frame_state_from_numpy(d: dict, device="cpu") -> FrameState:
 
 
 def map_state_from_numpy(d: dict, cfg: Config, n_levels: int, img_shape,
-                         intrinsics, device="cpu") -> MapState:
+                         intrinsics, device=None) -> MapState:
     """MapState with every host table in `d` copied in; `kf_pyr` (a list of
     (K, h, w) arrays) is uploaded to `device`."""
+    device = resolve_device(device)
     m = MapState(cfg, n_levels, tuple(img_shape), intrinsics=tuple(intrinsics),
                  device=device)
     for k, v in d.items():
@@ -51,8 +54,9 @@ def map_state_from_numpy(d: dict, cfg: Config, n_levels: int, img_shape,
     return m
 
 
-def point_seeds_from_numpy(d: dict, device="cpu") -> PointSeeds:
+def point_seeds_from_numpy(d: dict, device=None) -> PointSeeds:
     """PointSeeds from a dict of its columns."""
+    device = resolve_device(device)
     dt = {"kf_idx": torch.int32, "level": torch.int32, "batch_id": torch.int32,
           "alive": torch.bool}
     return PointSeeds(**{k: _t(d[k], device).to(dt.get(k, torch.float32))

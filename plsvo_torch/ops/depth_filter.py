@@ -14,6 +14,7 @@ import torch
 
 from plsvo_torch import lie
 from plsvo_torch.batlin import inv2x2
+from plsvo_torch.device import resolve_device
 from plsvo_torch.indexing import scatter_drop, to_int32, top_k_stable
 from plsvo_torch.ops import matcher as matcher_ops
 from plsvo_torch.ops.feature_align import align_mixed_atlas, ref_patch_gradients
@@ -33,7 +34,9 @@ class PointSeeds(NamedTuple):
     alive: torch.Tensor  # (S,) bool
 
 
-def empty_point_seeds(capacity: int, device="cpu") -> PointSeeds:
+def empty_point_seeds(capacity: int, device=None) -> PointSeeds:
+    device = resolve_device(device)
+
     def z(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -1,9 +1,10 @@
 """Grid-bucketed FAST-10 corner detection and edgelet detection.
 
-Port of `plsvo_tpu/ops/detection.py`. `detect_fast_grid` scores every
-pyramid level through `ops.fast_score.fast_score` (the CUDA kernel for a
-CUDA tensor). Wrap-around is semantics here: the ring, the gradients and
-the 3x3 non-max use `torch.roll`, as the JAX package rolls.
+Port of `plsvo_tpu/ops/detection.py`. `detect_fast_grid` scores all
+pyramid levels through `ops.fast_score.fast_score_levels` (one CUDA
+kernel launch for a CUDA pyramid). Wrap-around is semantics here: the
+ring, the gradients and the 3x3 non-max use `torch.roll`, as the JAX
+package rolls.
 """
 from __future__ import annotations
 
@@ -92,16 +93,16 @@ def detect_fast_grid(
 ) -> CornerGrid:
     """Best corner per level-0 grid cell across all pyramid levels (half-
     cell tile winners per level, then a per-cell max over all tiles)."""
-    from plsvo_torch.ops.fast_score import fast_score
+    from plsvo_torch.ops.fast_score import fast_score_levels
 
     H, W = pyramid[0].shape
     dev = pyramid[0].device
     nx, ny, n_cells = grid_cells(W, H, cell_size)
     cand_u, cand_v, cand_s, cand_l = [], [], [], []
-    for level, img in enumerate(pyramid):
-        h, w = img.shape
+    scored = fast_score_levels(list(pyramid), fast_threshold)
+    for level, (corner, score) in enumerate(scored):
+        h, w = corner.shape
         scale = float(1 << level)
-        corner, score = fast_score(img, fast_threshold)
         masked = torch.where(corner, score, torch.full_like(score, -float("inf")))
         keep = _nonmax_3x3(masked) & corner & (score > score_threshold)
         s = torch.where(keep, score, torch.full_like(score, -float("inf")))

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from plsvo_torch.device import resolve_device
+
 
 def _dlt_4pt(src, dst):
     """DLT from exactly 4 correspondences (..., 4, 2) -> ((..., 3, 3), ok)."""
@@ -140,13 +142,14 @@ class InitResult(NamedTuple):
 
 def homography_init(f_ref: np.ndarray, f_cur: np.ndarray, valid: np.ndarray,
                     *, focal: float, reproj_thresh_px: float = 2.0,
-                    min_inliers: int = 30, device="cpu",
+                    min_inliers: int = 30, device=None,
                     generator: torch.Generator = None,
                     draws=None) -> InitResult:
     """RANSAC H on unit-plane coords, decomposition, triangulation of the
     inliers (map scale is fixed by the caller)."""
     from plsvo_torch.ops.matcher import triangulate_depth
 
+    device = resolve_device(device)
     src = (f_ref[:, :2] / f_ref[:, 2:3]).astype(np.float32)
     dst = (f_cur[:, :2] / f_cur[:, 2:3]).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731

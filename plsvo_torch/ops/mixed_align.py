@@ -8,6 +8,9 @@ takes the plain twin, any other tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from plsvo_torch import _build
@@ -51,11 +54,58 @@ def mixed_align_plain(win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv,
     return uv, conv & valid & ok, md
 
 
+_F32 = torch.float32
+_BOOL = torch.bool
+# per input, in argument order: values per row, dtype, read as float4s
+_INPUTS = ((256, _F32, True), (2, _F32, False), (64, _F32, True),
+           (64, _F32, True), (64, _F32, True), (64, _F32, True),
+           (9, _F32, False), (4, _F32, False), (2, _F32, False),
+           (1, _BOOL, False), (2, _F32, False), (2, _F32, False),
+           (1, _BOOL, False))
+
+
+def _pointers(inputs, N):
+    """Device pointers of the kernel's inputs. The main path's inputs are
+    already f32/bool, contiguous and aligned: then nothing is copied.
+    Returns (pointers, the tensors they point into)."""
+    ptrs, keep = [], []
+    for a, (k, dt, vec) in zip(inputs, _INPUTS):
+        if a.dtype is not dt or not a.is_contiguous():
+            a = a.to(dt).contiguous()
+        p = a.data_ptr()
+        if vec and p % 16:  # float4 reads need 16-byte alignment
+            a = a.clone()
+            p = a.data_ptr()
+        if not a.is_cuda or a.numel() != N * k:
+            raise ValueError(f"mixed_align_cuda: an input of shape "
+                             f"{tuple(a.shape)} on {a.device} is not {k} "
+                             f"values per row on the card")
+        ptrs.append(p)
+        keep.append(a)
+    return ptrs, keep
+
+
+@functools.lru_cache(maxsize=None)
+def conv_sq(conv_eps: float) -> float:
+    """The f32 threshold T with x < T exactly when sqrtf(x) < conv_eps for
+    every f32 x >= 0 (sqrtf correctly rounded): sqrtf(x) < e holds iff
+    sqrt(x) lies below the midpoint m of e and its f32 predecessor, i.e.
+    iff x < m * m (exact in f64), i.e. iff x < the least f32 above m * m."""
+    e = np.float32(conv_eps)
+    if e <= 0:
+        return 0.0
+    m = (float(np.nextafter(e, np.float32(0))) + float(e)) / 2
+    t = np.float32(m * m)
+    if float(t) <= m * m:
+        t = np.nextafter(t, np.float32(np.inf))
+    return float(t)
+
+
 def mixed_align_cuda(win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv,
                      h1inv, d, is_1d, uv_init, wh, valid, *,
                      patch_size: int = 8, wp: int = 16, n_iter: int = 10,
                      conv_eps: float = 0.03):
-    """Launch the CUDA kernel: one warp per row, all iterations in one
+    """Launch the CUDA kernel: 8 lanes per row, all iterations in one
     launch. Same arguments and results as mixed_align_plain."""
     global launches
     lib = _build.load_library()
@@ -64,26 +114,24 @@ def mixed_align_cuda(win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv,
     if patch_size != 8 or wp != 16:
         raise ValueError("the kernel is built for 8x8 patches in 16x16 windows")
     N = win.shape[0]
-    f = lambda a: a.to(torch.float32).contiguous()  # noqa: E731
-    b = lambda a: a.to(torch.bool).contiguous()  # noqa: E731
-    args = [f(win.reshape(N, wp * wp)), f(corner), f(ref_patch), f(ref_dx),
-            f(ref_dy), f(dgrad), f(h3inv.reshape(N, 9)), f(h1inv.reshape(N, 4)),
-            f(d), b(is_1d), f(uv_init), f(wh), b(valid)]
-    if args[2].shape != (N, patch_size * patch_size):
-        raise ValueError(f"ref_patch shape {tuple(args[2].shape)}")
-    uv = torch.empty((N, 2), dtype=torch.float32, device=win.device)
-    conv = torch.empty(N, dtype=torch.bool, device=win.device)
-    md = torch.empty(N, dtype=torch.float32, device=win.device)
+    inputs = (win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv, h1inv, d,
+              is_1d, uv_init, wh, valid)
+    ptrs, keep = _pointers(inputs, N)
+    # one allocation: uv (N, 2) f32 | mean_diff (N,) f32 | converged (N,) bool
+    out = torch.empty(13 * N, dtype=torch.uint8, device=win.device)
+    base = out.data_ptr()
     if capture is not None:
-        capture((win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv, h1inv,
-                 d, is_1d, uv_init, wh, valid),
-                dict(patch_size=patch_size, wp=wp, n_iter=n_iter,
-                     conv_eps=conv_eps))
+        capture(inputs, dict(patch_size=patch_size, wp=wp, n_iter=n_iter,
+                             conv_eps=conv_eps))
     _build.check(lib.plsvo_mixed_align(
-        *[a.data_ptr() for a in args], uv.data_ptr(), conv.data_ptr(),
-        md.data_ptr(), N, int(n_iter), float(conv_eps),
+        *ptrs, base, base + 12 * N, base + 8 * N, N, int(n_iter),
+        float(conv_eps), conv_sq(conv_eps),
         torch.cuda.current_stream(win.device).cuda_stream),
         "plsvo_mixed_align")
+    del keep  # the copies, if any, stay alive until the launch is queued
+    uv = out[:8 * N].view(_F32).view(N, 2)
+    md = out[8 * N:12 * N].view(_F32)
+    conv = out[12 * N:].view(_BOOL)
     launches += 1
     return uv, conv, md
 

@@ -26,6 +26,7 @@ import torch
 
 from plsvo_torch.camera import PinholeCamera
 from plsvo_torch.config import Config
+from plsvo_torch.device import resolve_device
 from plsvo_torch.image import build_pyramid
 from plsvo_torch.ops import depth_filter as df
 from plsvo_torch.ops import detection, homography
@@ -85,17 +86,6 @@ def _check_supported(cam, cfg: Config):
         if bad:
             raise NotImplementedError(
                 f"config pipeline.{name}={getattr(pl, name)} is not ported")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The port runs on the card unless the caller asks for another device;
-    no GPU means an error, never a quiet CPU run."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' explicitly "
-                               "to run the plain PyTorch path")
-        device = "cuda"
-    return torch.device(device)
 
 
 class FrameHandlerMono:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from plsvo_torch.config import Config
+from plsvo_torch.device import resolve_device
 
 ST_DELETED = 0
 ST_CANDIDATE = 1
@@ -84,9 +85,10 @@ class MapState:
     n_levels: int
     img_shape: tuple
     intrinsics: tuple = (1.0, 1.0, 0.0, 0.0)
-    device: str = "cpu"
+    device: object = None  # None: the card (resolve_device)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         caps = self.cfg.caps
         K = caps.max_kfs
         P = caps.max_points

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from plsvo_torch.camera import PinholeCamera
+from plsvo_torch.device import resolve_device
 from plsvo_torch.image import half_sample
 
 
@@ -106,11 +107,11 @@ def _supersampled(cam: PinholeCamera, ss: int) -> PinholeCamera:
 
 
 def render_aa(scene: PlaneScene, cam: PinholeCamera, R_w_c, t_w_c, ss: int = 2,
-              device="cpu") -> torch.Tensor:
+              device=None) -> torch.Tensor:
     """Antialiased render: supersample ss x and box-downsample."""
     assert ss in (1, 2, 4)
     img = _render(scene, _supersampled(cam, ss) if ss > 1 else cam, R_w_c,
-                  t_w_c, device)
+                  t_w_c, resolve_device(device))
     while ss > 1:
         img = half_sample(img)
         ss //= 2
@@ -118,7 +119,8 @@ def render_aa(scene: PlaneScene, cam: PinholeCamera, R_w_c, t_w_c, ss: int = 2,
 
 
 def render_batch_aa(scene: PlaneScene, cam: PinholeCamera, Rs, ts, ss: int = 2,
-                    device="cpu") -> torch.Tensor:
+                    device=None) -> torch.Tensor:
     """Render many poses: Rs (B,3,3) cam->world, ts (B,3) -> (B,H,W)."""
+    device = resolve_device(device)
     return torch.stack([render_aa(scene, cam, R, t, ss=ss, device=device)
                         for R, t in zip(Rs, ts)])

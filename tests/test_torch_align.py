@@ -314,7 +314,8 @@ def test_klt_and_ransac_match_jax(rng):
     draws = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (256, 4), 0,
                                           n_valid))
     hj = jh.homography_init(f_ref, f_cur, ok, focal=250.0)
-    ht = th.homography_init(f_ref, f_cur, ok, focal=250.0, draws=draws)
+    ht = th.homography_init(f_ref, f_cur, ok, focal=250.0, draws=draws,
+                            device="cpu")
     assert ht.ok == hj.ok
     np.testing.assert_array_equal(ht.inliers, hj.inliers)
     np.testing.assert_allclose(ht.R_cur_ref, hj.R_cur_ref, atol=1e-4)

@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-entry point runs on the card unless told otherwise, and a CUDA tensor never
+entry points run on the card unless told otherwise, and a CUDA tensor never
 falls back to the plain twins."""
 import re
 import subprocess
@@ -39,7 +39,8 @@ vo = FrameHandlerMono(cam, cfg, device="cpu")
 ang = 0.018
 R = np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
                 [-np.sin(ang), 0, np.cos(ang)]], np.float32)
-img = synthetic.render_aa(scene, cam, R, np.asarray([0.132, 0.006 * np.sin(1.8), -2.0]))
+img = synthetic.render_aa(scene, cam, R, np.asarray([0.132, 0.006 * np.sin(1.8), -2.0]),
+                          device="cpu")
 r = vo.add_image(img, 0.0)
 assert (r.stage, r.quality) == ("first", "good") and r.n_pt_matches > 0, r
 bad = sorted(k for k in sys.modules
@@ -72,6 +73,50 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
         frame_handler.resolve_device(None)
 
 
+def _helper_call(name):
+    """A call of a public helper that creates tensors, with no device."""
+    import numpy as np
+
+    from plsvo_torch import convert
+    from plsvo_torch.ops import depth_filter, homography
+    from plsvo_torch.pipeline.state import MapState
+    from plsvo_torch.utils import synthetic
+
+    cam = PinholeCamera.create(64, 48, 50.0, 50.0, 32.0, 24.0)
+    R, t = np.eye(3, dtype=np.float32), np.asarray([0.0, 0.0, -2.0], np.float32)
+    f = np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (8, 1))
+    return {
+        "render_aa": lambda: synthetic.render_aa(
+            synthetic.make_scene(np.random.default_rng(1), size=64,
+                                 texel_size=0.02), cam, R, t),
+        "render_batch_aa": lambda: synthetic.render_batch_aa(
+            synthetic.make_scene(np.random.default_rng(1), size=64,
+                                 texel_size=0.02), cam, [R], [t]),
+        "homography_init": lambda: homography.homography_init(
+            f, f, np.ones(8, bool), focal=50.0),
+        "empty_point_seeds": lambda: depth_filter.empty_point_seeds(8),
+        "frame_state_from_numpy": lambda: convert.frame_state_from_numpy(
+            {"pyr": [np.zeros((48, 64), np.float32)]}),
+        "map_state_from_numpy": lambda: convert.map_state_from_numpy(
+            {}, fast_config(), 3, (48, 64), (50.0, 50.0, 32.0, 24.0)),
+        "point_seeds_from_numpy": lambda: convert.point_seeds_from_numpy({}),
+        "MapState": lambda: MapState(fast_config(), 3, (48, 64)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "render_aa", "render_batch_aa", "homography_init", "empty_point_seeds",
+    "frame_state_from_numpy", "map_state_from_numpy",
+    "point_seeds_from_numpy", "MapState"])
+def test_helpers_default_to_cuda(monkeypatch, name):
+    """Every public helper that creates tensors runs on the card unless the
+    caller names a device: with no card and no device it raises."""
+    call = _helper_call(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
 @pytest.mark.parametrize("field", ["has_ls", "init_ls", "loba_enabled",
                                    "pipelined"])
 def test_unported_config_raises(field):
@@ -100,6 +145,9 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
     img = torch.empty((48, 64), device="meta")
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         fast_score.fast_score(img, 10.0)
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        fast_score.fast_score_levels([img, torch.empty((24, 32), device="meta")],
+                                     10.0)
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         detection.detect_fast_grid([img], cell_size=16)
     N = 4

@@ -39,24 +39,68 @@ def _structured(gen, shape):
     return np.clip(img, 0, 255).astype(np.float32)
 
 
+# The kernel's box is separable: per column a pairwise tree over the 8 rows'
+# gradient products, then a pairwise tree over 8 columns across lanes. The
+# plain twin differences f32 cumsums along rows, then columns. The two
+# round differently by up to 1.0e-4 relative on the bench levels and
+# 2.5e-4 on the 100x300 noise image (measured on an H100).
+def _score_rel_err(s_k, s_p):
+    return float(((s_k - s_p).abs() / s_p.abs().clamp_min(1.0)).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(480, 752), (240, 376), (120, 188),
-                                   (100, 300)])
+                                   (100, 300), (97, 131), (37, 53)])
 def test_fast_score_kernel_matches_plain(cuda, gen, shape):
     img = torch.as_tensor(_structured(gen, shape), device=cuda)
+    before = tfs.launches
     m_k, s_k = tfs.fast_score_cuda(img, 10.0)
+    assert tfs.launches == before + 1
     m_p, s_p = tfs.fast_score_plain(img, 10.0)
     assert torch.equal(m_k, m_p)
-    # direct 8x8 sum in the kernel vs cumsum box filter in the plain twin:
-    # f32 rounding of ~1e-4 relative (measured on an H100)
-    rel = ((s_k - s_p).abs() / s_p.abs().clamp_min(1.0)).max()
-    assert float(rel) < 1e-3
+    assert _score_rel_err(s_k, s_p) < 1e-3
+    # a same-shape batch is one launch over a list of images
     mb, sb = tfs.fast_score_cuda(torch.stack([img, img]), 10.0)
+    assert tfs.launches == before + 2
     assert torch.equal(mb[1], m_k) and torch.equal(sb[1], s_k)
 
 
-def _mixed_problem(gen, device, N=256, H=120, W=160):
-    """The inputs of tests/test_pallas_align.py, built with the port."""
+def _bench_frame(device):
+    """Frame 0 of chip_smoke.py's 752x480 plane sequence."""
+    cam = PinholeCamera.create(752, 480, 460.0, 460.0, 376.0, 240.0)
+    scene = synthetic.make_scene(np.random.default_rng(3), size=2048,
+                                 texel_size=0.003)
+    return synthetic.render_aa(scene, cam, np.eye(3, dtype=np.float32),
+                               np.asarray([0.0, 0.0, -2.0], np.float32),
+                               device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["bench_levels", "odd_shapes"])
+def test_fast_score_levels_kernel_matches_plain(cuda, gen, which):
+    """One launch for a list of images of different shapes: the three
+    752x480 levels of the bench scene, or three odd shapes."""
+    if which == "bench_levels":
+        imgs = ti.build_pyramid(_bench_frame(cuda), 3)
+    else:
+        imgs = [torch.as_tensor(_structured(gen, s), device=cuda)
+                for s in [(100, 300), (97, 131), (37, 53)]]
+    before = tfs.launches
+    outs = tfs.fast_score_levels(imgs, 10.0)
+    assert tfs.launches == before + 1
+    for img, (m_k, s_k) in zip(imgs, outs):
+        m_p, s_p = tfs.fast_score_plain(img, 10.0)
+        assert torch.equal(m_k, m_p), tuple(img.shape)
+        assert int(m_p.sum()) > 0
+        rel = _score_rel_err(s_k, s_p)
+        print(f"K1 {tuple(img.shape)}: score max rel err {rel:.3e}")
+        assert rel < 1e-3
+
+
+def _mixed_problem(gen, device, N=256, H=120, W=160, mode="mixed"):
+    """The inputs of tests/test_pallas_align.py, built with the port; mode
+    picks the 1-D rows (none, all, or ~30%). A few rows start outside their
+    window and ~10% are invalid."""
     img = np.clip(gen.normal(128, 40, (H, W)), 0, 255).astype(np.float32)
     p = np.pad(img, 1)
     img = sum(p[i:i + H, j:j + W] for i in range(3) for j in range(3)) / 9.0
@@ -72,17 +116,24 @@ def _mixed_problem(gen, device, N=256, H=120, W=160):
                                                        device=device))
     ref, dx, dy = tfa.ref_patch_gradients(patch, 8)
     uv0 = (uv_true + gen.uniform(-2, 2, (N, 2))).astype(np.float32)
+    uv0[gen.random(N) < 0.05] += 9.0  # outside the window from the start
     d = gen.normal(size=(N, 2)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    is_1d = {"2d": np.zeros(N, bool), "1d": np.ones(N, bool),
+             "mixed": gen.random(N) < 0.3}[mode]
     T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return (atlas, x_off, sizes, ref, dx, dy, T(uv0), T(d),
-            T(gen.random(N) < 0.3), torch.zeros(N, dtype=torch.long, device=device),
+    return (atlas, x_off, sizes, ref, dx, dy, T(uv0), T(d), T(is_1d),
+            torch.zeros(N, dtype=torch.long, device=device),
             T(gen.random(N) < 0.9))
 
 
 @pytest.mark.cuda
-def test_mixed_align_kernel_matches_plain(cuda, gen):
-    args = _mixed_problem(gen, cuda)
+@pytest.mark.parametrize("mode", ["2d", "1d", "mixed"])
+@pytest.mark.parametrize("N", [1, 3, 5, 192, 257])
+def test_mixed_align_kernel_matches_plain(cuda, gen, N, mode):
+    """The parity bar of ROADMAP B2: equal verdicts, uv atol 2e-3,
+    mean_diff atol 2e-2."""
+    args = _mixed_problem(gen, cuda, N=N, mode=mode)
     captured = []
     tma.capture = lambda a, k: captured.append((a, k))
     try:
@@ -94,9 +145,11 @@ def test_mixed_align_kernel_matches_plain(cuda, gen):
     kargs, kw = captured[0]
     uv_p, c_p, md_p = tma.mixed_align_plain(*kargs, **kw)
     assert torch.equal(out.converged, c_p)
-    assert int(c_p.sum()) >= 20
-    assert float((out.uv - uv_p)[c_p].abs().max()) < 2e-3
-    assert float((out.mean_diff - md_p)[c_p].abs().max()) < 2e-2
+    if N >= 192:
+        assert int(c_p.sum()) >= N // 4
+    if c_p.any():
+        assert float((out.uv - uv_p)[c_p].abs().max()) < 2e-3
+        assert float((out.mean_diff - md_p)[c_p].abs().max()) < 2e-2
 
 
 @pytest.mark.cuda

@@ -36,7 +36,7 @@ def test_render_aa_matches_jax(frame):
     timg = tsyn.render_aa(tsyn.make_scene(np.random.default_rng(7), size=1024,
                                           texel_size=0.004),
                           TCam.create(320, 240, 250.0, 250.0, 160.0, 120.0),
-                          R, t)
+                          R, t, device="cpu")
     assert tuple(timg.shape) == (240, 320)
     np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), atol=1e-3)
 
@@ -46,7 +46,8 @@ def test_render_batch_matches_single():
     cam = TCam.create(160, 120, 125.0, 125.0, 80.0, 60.0)
     poses = [pose(i) for i in (0, 5)]
     batch = tsyn.render_batch_aa(scene, cam, [p[0] for p in poses],
-                                 [p[1] for p in poses])
+                                 [p[1] for p in poses], device="cpu")
     for k, (R, t) in enumerate(poses):
         np.testing.assert_array_equal(batch[k].numpy(),
-                                      tsyn.render_aa(scene, cam, R, t).numpy())
+                                      tsyn.render_aa(scene, cam, R, t,
+                                                     device="cpu").numpy())

@@ -61,14 +61,15 @@ def port_handler_from(jvo, cfg):
     tables["kf_pyr"] = [np.asarray(p) for p in jm.kf_pyr]
     tvo.map = convert.map_state_from_numpy(
         tables, tvo.cfg, tvo.n_levels, (CAM.height, CAM.width),
-        (CAM.fx, CAM.fy, CAM.cx, CAM.cy))
+        (CAM.fx, CAM.fy, CAM.cx, CAM.cy), device="cpu")
     last = jvo.last_frame
     fields = {f.name: getattr(last, f.name)
               for f in dataclasses.fields(TFrameState)}
     fields["pyr"] = [np.asarray(p) for p in last.pyr]
-    tvo.last_frame = convert.frame_state_from_numpy(fields)
+    tvo.last_frame = convert.frame_state_from_numpy(fields, device="cpu")
     tvo.pt_seeds = convert.point_seeds_from_numpy(
-        {k: np.asarray(v) for k, v in jvo.pt_seeds._asdict().items()})
+        {k: np.asarray(v) for k, v in jvo.pt_seeds._asdict().items()},
+        device="cpu")
     tvo._seed_alive = jvo._seed_alive.copy()
     tvo.batch_counter = jvo.batch_counter
     tvo.stage = STAGE_DEFAULT
