@@ -9,23 +9,35 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                the three 752x480 pyramid levels of the bench scene (the
                main path's call), and one single-image launch on 100x300;
                detect_fast_grid kernel vs plain cell winners
-  4. slice   — FrameHandlerMono on 40 frames of the 752x480 plane sequence
-               (points-only sync config, default capacities), first in an
-               untimed pass that captures every K2 launch's inputs (and one
-               align_mixed_atlas call's), then in the timed run; launch
-               counts are read from the timed run alone, and every keyframe
-               detection must launch K1 exactly once; per-stage host times
-  5. K2      — the mixed-align GN kernel vs its plain twin on the inputs of
-               every launch of the capture pass
-  6. profile — 5 more frames with each stage timed between two
-               synchronisations, then 5 under torch.profiler: device busy
-               share, kernel launches (per frame and per stage), host syncs,
-               top device ops
-  7. timing  — K1's three-level launch (device time, per-call time, bound)
-               and each level alone; K2's device and per-call times at
-               every N of the run; detect_fast_grid's and
+  4. lines   — detect_segments_tiled (the keyframe line detector) on the
+               card vs the same code on the CPU, on bench frame 0: valid
+               masks and responses equal, endpoints within 1e-2 px
+  5. runs    — FrameHandlerMono on the 752x480 plane sequence at half the
+               bench's speed (RUN_STEP), default capacities, sync path
+               without local BA: first points + lines on 40 frames (the
+               main path), then points only on 24 frames at the bench's
+               own speed;
+               each run first in an untimed pass that captures every K2
+               launch's inputs (tagged by call site), then timed, with the
+               launch counts set to 0 just before the timed run and read
+               just after it. Gates: DEFAULT reached and kept, ATE < 1% of
+               the path, one K1 launch per keyframe detection; with lines
+               also line seeds installed at keyframes, at least one line
+               landmark made from a converged seed, and a median segment
+               match count > 0 after the first line landmark
+  6. K2      — the mixed-align GN kernel vs its plain twin on the inputs of
+               every launch of both capture passes
+  7. profile — 5 more frames of the lines run with each stage timed between
+               two synchronisations, then 5 under torch.profiler: device
+               busy share, kernel launches (per frame and per stage), host
+               syncs, top device ops
+  8. timing  — K1's three-level launch (device time, per-call time, bound)
+               and each level alone; K2 at the reprojection's N=384 launch
+               with the most valid rows (device, per-call, bound) and its
+               device time at every call site and N of the lines run;
+               detect_fast_grid's, detect_segments_tiled's and
                align_mixed_atlas's per-call times
-  8. report  — one JSON line per the kernel report format, the card line,
+  9. report  — one JSON line per the kernel report format, the card line,
                and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero, with no result line, when any phase fails or no CUDA
@@ -55,6 +67,12 @@ K1_BYTES_PER_PX = 4 + 1 + 4  # read f32 image, write bool mask + f32 score
 # K2 work per active row-iteration: 64 taps x (9 bilinear + 2 residual +
 # 7 for the four weighted sums) + ~30 for locate/solve/update
 K2_OPS_PER_ROW_ITER = 64 * 18 + 30
+# Sideways travel per frame of the lines run's sequence: half of bench.py's
+# 0.03 m. A line seed ages out 3 keyframes after its own and updates only
+# in frames where both endpoints match; at the bench's speed keyframes
+# come every few frames and line seeds rarely converge before they age
+# out. At half the speed line landmarks form within the 40 frames.
+RUN_STEP = 0.015
 
 
 def fail(msg):
@@ -142,8 +160,9 @@ def calls_device_ms(calls, kernel_name, reps=10):
     return [kernel_device_ms(f, kernel_name, n=2 * reps) for f in calls]
 
 
-def bench_sequence(n_frames, device):
-    """The bench.py plane sequence, rendered by the port."""
+def bench_sequence(n_frames, device, step=0.03):
+    """The bench.py plane sequence (step m of sideways travel per frame),
+    rendered by the port."""
     from plsvo_torch.camera import PinholeCamera
     from plsvo_torch.utils import synthetic
 
@@ -156,7 +175,7 @@ def bench_sequence(n_frames, device):
         ang = 0.002 * i
         Rs.append(np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
                               [-np.sin(ang), 0, np.cos(ang)]], np.float32))
-        ts.append(np.asarray([0.03 * i, 0.008 * np.sin(0.3 * i), -2.0],
+        ts.append(np.asarray([step * i, 0.008 * np.sin(0.3 * i), -2.0],
                              np.float32))
     imgs = synthetic.render_batch_aa(scene, cam, Rs, ts, ss=2, device=device)
     return cam, imgs, np.stack(ts)
@@ -213,26 +232,45 @@ def phase_k1(imgs0, device):
     return pyr, worst_abs, worst_rel
 
 
-def phase_slice(cam, imgs, gt_centers, device, n_main):
+def slice_config(lines: bool):
+    from plsvo_torch.config import default_config
+
+    cfg = default_config()
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, has_ls=lines, init_ls=lines, loba_enabled=False,
+        pipelined=False))
+
+
+def _call_sites():
+    """(owner, attribute, site) of the main path's K2 call sites."""
+    from plsvo_torch.ops import depth_filter
+    from plsvo_torch.pipeline import reprojector
+
+    return [(reprojector, "reproject_combined", "reproject"),
+            (reprojector, "reproject_points", "reproject"),
+            (depth_filter, "update_seeds_combined", "seeds")]
+
+
+def phase_run(name, cam, imgs, gt_centers, device, n_main, lines):
+    """One run of the slice config (lines on or off): an untimed capture
+    pass, then the timed run with fresh launch counts."""
     import torch
 
-    from plsvo_torch.config import default_config
     from plsvo_torch.ops import depth_filter, matcher
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
     from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
                                                     FrameHandlerMono)
+    from plsvo_torch.pipeline.state import MapState
     from plsvo_torch.utils import trajectory
 
-    cfg = default_config()
-    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, has_ls=False, init_ls=False, loba_enabled=False,
-        pipelined=False))
-    captured = []  # (args, kwargs) of every K2 launch of the capture pass
-    atlas_calls = []  # (args, kwargs) of the reprojection align_mixed_atlas
+    cfg = slice_config(lines)
+    captured = []  # (args, kwargs, site) of every K2 launch of the capture pass
+    atlas_calls = []  # (args, kwargs) of a reprojection align_mixed_atlas
+    site = ["other"]
 
     def capture(args, kwargs):
-        captured.append(([a.clone() for a in args], dict(kwargs)))
+        captured.append(([a.clone() for a in args], dict(kwargs), site[0]))
 
     def capture_atlas(orig):
         def wrapped(*a, **k):
@@ -242,11 +280,24 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
             return orig(*a, **k)
         return wrapped
 
+    def at_site(orig, label):
+        def wrapped(*a, **k):
+            site[0] = label
+            try:
+                return orig(*a, **k)
+            finally:
+                site[0] = "other"
+        return wrapped
+
     # capture pass: the same frames through a handler of its own, untimed,
     # so that the timed run below carries no capture copies
-    saved = [(m, m.align_mixed_atlas) for m in (matcher, depth_filter)]
-    for m, orig in saved:
+    saved = [(m, "align_mixed_atlas", m.align_mixed_atlas)
+             for m in (matcher, depth_filter)]
+    saved += [(o, a, getattr(o, a)) for o, a, _ in _call_sites()]
+    for m, _, orig in saved[:2]:
         m.align_mixed_atlas = capture_atlas(orig)
+    for (o, a, label), (_, _, orig) in zip(_call_sites(), saved[2:]):
+        setattr(o, a, at_site(orig, label))
     ma.capture = capture
     try:
         cap_vo = FrameHandlerMono(cam, cfg, device=device)
@@ -254,60 +305,101 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
             cap_vo.add_image(imgs[i], i / 30.0)
     finally:
         ma.capture = None
-        for m, orig in saved:
-            m.align_mixed_atlas = orig
+        for o, a, orig in saved:
+            setattr(o, a, orig)
     del cap_vo
 
+    created = []  # frame of every line landmark made from a converged seed
+    frame_now = [-1]
+    orig_new_line = MapState.new_line
+
+    def counting_new_line(self, *a, **k):
+        r = orig_new_line(self, *a, **k)
+        if r >= 0:
+            created.append(frame_now[0])
+        return r
+
     vo = FrameHandlerMono(cam, cfg, device=device)
+    results, ms = [], []
+    k1_at_kf, ln_installs = [], []
+    MapState.new_line = counting_new_line
     fs.launches = 0
     ma.launches = 0
-    results, ms = [], []
-    k1_at_kf = []
-    for i in range(n_main):
-        k1_before = fs.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = vo.add_image(imgs[i], i / 30.0)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        results.append(r)
-        if r.stage == STAGE_DEFAULT and r.is_keyframe:
-            k1_at_kf.append(fs.launches - k1_before)
-    launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+    try:
+        for i in range(n_main):
+            k1_before = fs.launches
+            frame_now[0] = i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = vo.add_image(imgs[i], i / 30.0)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            results.append(r)
+            if r.is_keyframe:
+                ln_installs.append(int((vo._lnseed_install_frame == i).sum()))
+            if r.stage == STAGE_DEFAULT and r.is_keyframe:
+                k1_at_kf.append(fs.launches - k1_before)
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+    finally:
+        MapState.new_line = orig_new_line
     gt_centers = gt_centers[:n_main]
     stages = [r.stage for r in results]
-    print("slice stages:", " ".join(s[0] for s in stages), flush=True)
+    print(f"{name} stages:", " ".join(s[0] for s in stages), flush=True)
     if STAGE_DEFAULT not in stages:
-        fail("the slice never reached STAGE_DEFAULT")
+        fail(f"{name}: never reached STAGE_DEFAULT")
     fd = stages.index(STAGE_DEFAULT)
     if any(s != STAGE_DEFAULT for s in stages[fd:]):
-        fail(f"tracking left STAGE_DEFAULT after frame {fd}: {stages[fd:]}")
+        fail(f"{name}: tracking left STAGE_DEFAULT after frame {fd}: {stages[fd:]}")
+    if len(stages) - fd < 10:
+        fail(f"{name}: only {len(stages) - fd} DEFAULT frames")
     est = np.stack([-r.R_f_w.T @ r.t_f_w for r in results[fd:]])
     gt = gt_centers[fd:]
     if not np.isfinite(est).all():
-        fail("non-finite camera centres")
+        fail(f"{name}: non-finite camera centres")
     ate = trajectory.ate_rmse(est.astype(np.float64), gt.astype(np.float64))
     path = float(np.linalg.norm(np.diff(gt, axis=0), axis=-1).sum())
     n_kf = sum(r.is_keyframe for r in results)
     tail = ms[fd + 5:]
-    print(f"slice: DEFAULT from frame {fd}, {len(results) - fd} tracked frames, "
+    print(f"{name}: DEFAULT from frame {fd}, {len(results) - fd} tracked frames, "
           f"{n_kf} keyframes, {vo.map.n_keyframes()} in the map, "
-          f"{int((vo.map.pt_status > 0).sum())} landmarks, median point "
+          f"{int((vo.map.pt_status > 0).sum())} point landmarks, median point "
           f"matches {np.median([r.n_pt_matches for r in results[fd:]]):.0f}",
           flush=True)
-    print(f"slice: Sim3 ATE {ate:.6f} m over a {path:.3f} m path "
+    print(f"{name}: Sim3 ATE {ate:.6f} m over a {path:.3f} m path "
           f"({100 * ate / path:.3f}%)", flush=True)
-    print(f"slice: per-frame ms (DEFAULT frames after the first 5, n={len(tail)}): "
+    print(f"{name}: per-frame ms (DEFAULT frames after the first 5, n={len(tail)}): "
           f"median {np.median(tail):.2f}, p90 {np.percentile(tail, 90):.2f}",
           flush=True)
-    print(f"slice: launches {launches}; K1 launches at DEFAULT keyframes "
+    print(f"{name}: launches {launches}; K1 launches at DEFAULT keyframes "
           f"{k1_at_kf}", flush=True)
     if ate >= 0.01 * path:
-        fail(f"ATE {ate} >= 1% of the path length {path}")
+        fail(f"{name}: ATE {ate} >= 1% of the path length {path}")
     if launches["fast_score"] <= 0 or launches["mixed_align"] <= 0:
-        fail(f"a kernel of the path never launched: {launches}")
+        fail(f"{name}: a kernel of the path never launched: {launches}")
     if not k1_at_kf or any(k != 1 for k in k1_at_kf):
-        fail(f"K1 launches per tracked keyframe are {k1_at_kf}, not one each")
+        fail(f"{name}: K1 launches per tracked keyframe are {k1_at_kf}, not one each")
+    seg_med = None
+    if lines:
+        seg = [r.n_seg_matches for r in results]
+        print(f"{name}: line seeds installed at the keyframes {ln_installs}; "
+              f"{len(created)} line landmarks made from converged seeds (first "
+              f"at frame {created[0] if created else None}), "
+              f"{int((vo.map.ln_status > 0).sum())} live at the end; segment "
+              f"matches per frame {seg}", flush=True)
+        if not ln_installs or sum(ln_installs[1:]) <= 0:
+            fail(f"{name}: no line seed installed at a tracked keyframe: "
+                 f"{ln_installs}")
+        if not created:
+            fail(f"{name}: no line landmark was made from a converged seed")
+        after = [n for r, n in zip(results, seg)
+                 if r.stage == STAGE_DEFAULT and r.frame_id > created[0]]
+        seg_med = float(np.median(after)) if after else 0.0
+        print(f"{name}: median segment matches over the {len(after)} tracked "
+              f"frames after the first line landmark: {seg_med:.1f} (over all "
+              f"tracked frames {np.median(seg[fd:]):.1f})", flush=True)
+        if seg_med <= 0:
+            fail(f"{name}: median segment matches after the first line "
+                 f"landmark is {seg_med}")
     # per-stage host wall time (stage timers of the frame handler) over the
     # same frames as the per-frame ms
     vo.permon.finish()
@@ -316,12 +408,40 @@ def phase_slice(cam, imgs, gt_centers, device, n_main):
     stage_ms = {k[2:]: (1e3 * float(np.median([r.get(k, 0.0) for r in recs])),
                         1e3 * float(np.mean([r.get(k, 0.0) for r in recs])))
                 for k in keys}
-    print("slice: per-stage host ms (median, mean): " + ", ".join(
+    print(f"{name}: per-stage host ms (median, mean): " + ", ".join(
         f"{k} {a:.2f}/{b:.2f}" for k, (a, b) in stage_ms.items()), flush=True)
     return dict(vo=vo, launches=launches, n_frames=len(results),
                 captured=captured, atlas_calls=atlas_calls, ate=ate, path=path,
                 ms_median=float(np.median(tail)),
-                ms_p90=float(np.percentile(tail, 90)))
+                ms_p90=float(np.percentile(tail, 90)), seg_median=seg_med,
+                n_lines_made=len(created))
+
+
+def phase_lines(img, device):
+    """The keyframe line detector on the card against the same code on the
+    CPU."""
+    import torch
+
+    from plsvo_torch.ops import lines
+
+    kw = dict(n_peaks=64, run_gap_px=3.0, dist_tol=1.2)
+    d_k = lines.detect_segments_tiled(img, **kw)
+    d_p = lines.detect_segments_tiled(img.cpu(), **kw)
+    torch.cuda.synchronize()
+    vk, vp = d_k.valid.cpu(), d_p.valid
+    if not torch.equal(vk, vp):
+        fail(f"detect_segments_tiled: valid masks differ in "
+             f"{int((vk != vp).sum())} of {len(vp)} rows")
+    if not torch.equal(d_k.response.cpu(), d_p.response):
+        fail("detect_segments_tiled: responses differ")
+    err = max(float((getattr(d_k, n).cpu() - getattr(d_p, n))[vp].abs().max())
+              for n in ("sp", "ep")) if vp.any() else 0.0
+    print(f"lines: detect_segments_tiled {tuple(img.shape)} card vs CPU: "
+          f"{int(vp.sum())} of {len(vp)} rows valid, masks and responses equal, "
+          f"endpoints max abs err {err:.3e} px", flush=True)
+    if int(vp.sum()) < 50 or err > 1e-2:
+        fail(f"detect_segments_tiled: {int(vp.sum())} valid rows, endpoint "
+             f"error {err} (atol 1e-2)")
 
 
 def k2_active_row_iters(args, kw):
@@ -340,6 +460,18 @@ def k2_active_row_iters(args, kw):
     return total
 
 
+def k2_bound_ms(n, row_iters):
+    """(bound in ms, what bounds it) of a K2 launch of n rows whose data
+    needs row_iters active row-iterations. Bytes per row: the 16x16 window,
+    four 64-tap vectors, H^-1 and the small per-row terms, read once; uv,
+    mean_diff and the verdict written once."""
+    n_bytes = n * (256 * 4 + 4 * 64 * 4 + (9 + 4 + 2 + 2 + 2 + 2) * 4
+                   + 2 + 2 * 4 + 1 + 4)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = row_iters * K2_OPS_PER_ROW_ITER / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_k2(captured):
     """Every captured launch re-run by the kernel and by the plain twin on
     the card. Returns {N: (launches, launches with valid rows, uv err,
@@ -351,7 +483,7 @@ def phase_k2(captured):
     if not captured:
         fail("K2 captured no launch of the slice")
     out = {}
-    for args, kw in captured:
+    for args, kw, _ in captured:
         n = args[0].shape[0]
         uv_k, c_k, md_k = ma.mixed_align_cuda(*args, **kw)
         uv_p, c_p, md_p = ma.mixed_align_plain(*args, **kw)
@@ -378,7 +510,8 @@ def phase_k2(captured):
 def _stage_hooks():
     """(owner, attribute, label) of the stages of a tracked frame and of a
     keyframe, as the frame handler reaches them (outermost calls only)."""
-    from plsvo_torch.ops import depth_filter, pose_opt, sparse_align, struct_opt
+    from plsvo_torch.ops import (depth_filter, lines, pose_opt, sparse_align,
+                                 struct_opt)
     from plsvo_torch.pipeline import frame_handler, fused, reprojector
 
     return [
@@ -386,12 +519,15 @@ def _stage_hooks():
         (frame_handler.FrameHandlerMono, "_step_inputs", "upload"),
         (sparse_align, "sparse_img_align", "sparse_img_align"),
         (reprojector, "reproject_points", "reproject_points"),
+        (reprojector, "reproject_combined", "reproject_combined"),
         (pose_opt, "optimize_pose", "optimize_pose"),
         (struct_opt, "optimize_points", "optimize_points"),
         (depth_filter, "update_seeds_combined", "update_seeds"),
         (fused, "fetch", "fetch"),
         (frame_handler, "_kf_detect_program", "kf_detect"),
+        (lines, "detect_segments_tiled", "detect_segments_tiled"),
         (depth_filter, "scatter_new_point_seeds_blob", "kf_seed_install"),
+        (depth_filter, "scatter_new_line_seeds_blob", "kf_line_seed_install"),
     ]
 
 
@@ -537,19 +673,23 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
-    n_main, n_win = 40, 5
-    cam, imgs, gt = bench_sequence(n_main + 2 * n_win, device)
+    n_main, n_pts, n_win = 40, 24, 5
+    cam, imgs, gt = bench_sequence(n_main + 2 * n_win, device, step=RUN_STEP)
+    _, imgs_p, gt_p = bench_sequence(n_pts, device)
     torch.cuda.synchronize()
-    print(f"rendered {imgs.shape[0]} frames {tuple(imgs.shape[1:])} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"rendered {imgs.shape[0]} + {imgs_p.shape[0]} frames "
+          f"{tuple(imgs.shape[1:])} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     pyr0, k1_abs, k1_rel = phase_k1(imgs[0], device)
-    sl = phase_slice(cam, imgs, gt, device, n_main)
-    k2 = phase_k2(sl["captured"])
+    phase_lines(imgs[0], device)
+    sl = phase_run("lines", cam, imgs, gt, device, n_main, lines=True)
+    sp = phase_run("points", cam, imgs_p, gt_p, device, n_pts, lines=False)
+    k2 = phase_k2(sl["captured"] + sp["captured"])
     phase_profile(sl["vo"], imgs, n_main, n_win, sl["ms_median"])
 
     # ---- timings at the main path's shapes ----
-    from plsvo_torch.ops import detection, feature_align
+    from plsvo_torch.ops import detection, feature_align, lines
 
     px = sum(p.numel() for p in pyr0)
     levels = [list(p.shape) for p in pyr0]
@@ -562,52 +702,63 @@ def main():
                          px * K1_OPS_PER_PX / F32_OPS_PER_S)
     k1_by = ("bytes" if px * K1_BYTES_PER_PX / HBM_BYTES_PER_S
              >= px * K1_OPS_PER_PX / F32_OPS_PER_S else "operations")
-    # the reprojection refine's launch (N = max_fts = 192) with the most
-    # valid rows
-    n_k2 = 192 if 192 in k2 else max(k2)
-    args, kw = max((c for c in sl["captured"] if c[0][0].shape[0] == n_k2),
-                   key=lambda c: int(c[0][12].sum()))
+    # the reprojection's launch (N = max_fts + 2 * max_segs = 384: points
+    # and both endpoints of the selected lines) with the most valid rows
+    caps = slice_config(True).caps
+    n_k2 = caps.max_fts + 2 * caps.max_segs
+    reproj = [c for c in sl["captured"]
+              if c[2] == "reproject" and c[0][0].shape[0] == n_k2]
+    if not reproj:
+        fail(f"K2 captured no reprojection launch at N={n_k2}")
+    args, kw, _ = max(reproj, key=lambda c: int(c[0][12].sum()))
     k2_ms = cuda_time_ms(lambda: ma.mixed_align_cuda(*args, **kw))
     k2_dev = kernel_device_ms(lambda: ma.mixed_align_cuda(*args, **kw),
                               "mixed_align_kernel")
     k2_plain = cuda_time_ms(lambda: ma.mixed_align_plain(*args, **kw), reps=10,
                             inner=5)
     row_iters = k2_active_row_iters(args, kw)
-    k2_bytes = n_k2 * (256 * 4 + 4 * 64 * 4 + (9 + 4 + 2 + 2 + 2 + 2) * 4
-                         + 2 + 2 * 4 + 1 + 4)
-    k2_ops = row_iters * K2_OPS_PER_ROW_ITER
-    k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops / F32_OPS_PER_S)
-    k2_by = "bytes" if k2_bytes / HBM_BYTES_PER_S >= k2_ops / F32_OPS_PER_S \
-        else "operations"
+    k2_bound, k2_by = k2_bound_ms(n_k2, row_iters)
     print(f"timing: K1 three-level launch {levels} ({px} px) kernel "
           f"{k1_ms:.4f} ms per call (device {k1_dev:.4f} ms), plain "
           f"{k1_plain:.4f} ms, bound {k1_bound:.5f} ms ({k1_by}; the kernel "
-          f"runs at {100 * k1_bound / k1_dev:.1f}% of its bound); K2 N={n_k2} kernel "
-          f"{k2_ms:.4f} ms per call (device {k2_dev:.4f} ms), plain "
-          f"{k2_plain:.4f} ms, bound {k2_bound:.6f} ms ({k2_by}, {row_iters} "
-          f"active row-iterations)", flush=True)
+          f"runs at {100 * k1_bound / k1_dev:.1f}% of its bound); K2 reprojection "
+          f"N={n_k2} ({int(args[12].sum())} valid rows) kernel {k2_ms:.4f} ms "
+          f"per call (device {k2_dev:.4f} ms), plain {k2_plain:.4f} ms, bound "
+          f"{k2_bound:.6f} ms ({k2_by}, {row_iters} active row-iterations; the "
+          f"kernel runs at {100 * k2_bound / k2_dev:.1f}% of its bound)",
+          flush=True)
     for lvl in pyr0:
         f1 = lambda: fs.fast_score_cuda(lvl, 10.0)  # noqa: E731
         print(f"timing: K1 {lvl.shape[0]}x{lvl.shape[1]} alone: kernel "
               f"{cuda_time_ms(f1):.4f} ms per call (device "
               f"{kernel_device_ms(f1, 'fast_score_kernel'):.4f} ms)", flush=True)
     # K2's device time depends on the data (the warp leaves once its rows
-    # are inactive): every launch of the run, replayed
+    # are inactive): every launch of both runs, replayed, by call site and N
     k2_run = {}
-    for n in sorted(k2):
-        runs = [c for c in sl["captured"] if c[0][0].shape[0] == n]
-        a, k = runs[0]
-        f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
-        dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
-                               for a, k in runs], "mixed_align_kernel")
-        k2_run[n] = (float(np.median(dev)), max(dev))
-        print(f"timing: K2 N={n} kernel {cuda_time_ms(f2):.4f} ms per call; "
-              f"device over the run's {len(runs)} launches: median "
-              f"{k2_run[n][0]:.4f} ms, max {k2_run[n][1]:.4f} ms",
-              flush=True)
+    for run, res in (("lines", sl), ("points", sp)):
+        groups = {}
+        for c in res["captured"]:
+            groups.setdefault((c[2], c[0][0].shape[0]), []).append(c)
+        for (where, n), runs in sorted(groups.items()):
+            # the launch of the group with the most valid rows
+            a, k, _ = max(runs, key=lambda c: int(c[0][12].sum()))
+            f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
+            dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
+                                   for a, k, _ in runs], "mixed_align_kernel")
+            k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
+            b_ms, b_by = k2_bound_ms(n, k2_active_row_iters(a, k))
+            print(f"timing: K2 {run} run, {where} N={n}: {len(runs)} launches "
+                  f"(capture pass); the one with the most valid rows "
+                  f"({int(a[12].sum())}): kernel {cuda_time_ms(f2):.4f} ms per "
+                  f"call, bound {b_ms:.6f} ms ({b_by}); device over the "
+                  f"launches: median {k2_run[(run, where, n)][0]:.4f} ms, max "
+                  f"{k2_run[(run, where, n)][1]:.4f} ms", flush=True)
     det_ms = cuda_time_ms(lambda: detection.detect_fast_grid(
         pyr0, cell_size=25, score_threshold=20.0), reps=10, inner=5)
-    msg = f"timing: detect_fast_grid (3 levels) {det_ms:.4f} ms per call"
+    seg_ms = cuda_time_ms(lambda: lines.detect_segments_tiled(
+        pyr0[0], n_peaks=64, run_gap_px=3.0, dist_tol=1.2), reps=5, inner=2)
+    msg = (f"timing: detect_fast_grid (3 levels) {det_ms:.4f} ms per call; "
+           f"detect_segments_tiled (480x752) {seg_ms:.4f} ms per call")
     if sl["atlas_calls"]:
         a, k = sl["atlas_calls"][0]
         al_ms = cuda_time_ms(lambda: feature_align.align_mixed_atlas(*a, **k),
@@ -622,15 +773,18 @@ def main():
     # score; K2: uv in pixels), "max_err" is the error each kernel is gated
     # on (K1: the score relative to max(|score|, 1); K2: mean_diff,
     # absolute). "ms" is the per-call time, wrapper and launch included;
-    # "kernel_ms" the kernel's own device time (K2: on the launch of N=192
-    # with the most valid rows; "kernel_ms_run_median" and "_max" over all
-    # the run's launches of that N).
+    # "kernel_ms" the kernel's own device time (K2: on the reprojection
+    # launch of N=384 with the most valid rows; "kernel_ms_run_median" and
+    # "_max" over all the lines run's reprojection launches of that N).
+    # "launches" counts the main path's (points + lines) run;
+    # "launches_points_only" the points-only run.
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda",
          "source": "plsvo_torch/csrc/fast_score.cu",
          "replaces": "plsvo_tpu/ops/pallas_fast.py:117",
          "launches": sl["launches"]["fast_score"],
          "launches_per_frame": sl["launches"]["fast_score"] / nf,
+         "launches_points_only": sp["launches"]["fast_score"],
          "max_abs_err": k1_abs, "max_abs_err_kind": "abs_score",
          "max_err": k1_rel, "max_err_kind": "rel_score",
          "ms": k1_ms, "kernel_ms": k1_dev, "plain_ms": k1_plain,
@@ -641,15 +795,20 @@ def main():
          "replaces": "plsvo_tpu/ops/pallas_align.py:163",
          "launches": sl["launches"]["mixed_align"],
          "launches_per_frame": sl["launches"]["mixed_align"] / nf,
+         "launches_points_only": sp["launches"]["mixed_align"],
          "max_abs_err": k2_uv, "max_abs_err_kind": "abs_uv_px",
          "max_err": k2_md, "max_err_kind": "abs_mean_diff",
          "ms": k2_ms, "kernel_ms": k2_dev, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-         "kernel_ms_run_median": k2_run[n_k2][0],
-         "kernel_ms_run_max": k2_run[n_k2][1], "shape": [n_k2]},
+         "kernel_ms_run_median": k2_run[("lines", "reproject", n_k2)][0],
+         "kernel_ms_run_max": k2_run[("lines", "reproject", n_k2)][1],
+         "shape": [n_k2]},
     ]}
-    print(f"slice summary: ATE {sl['ate']:.6f} m, per-frame ms median "
-          f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f}", flush=True)
+    print(f"summary: lines run ATE {sl['ate']:.6f} m, per-frame ms median "
+          f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f}, {sl['n_lines_made']} "
+          f"line landmarks, median segment matches {sl['seg_median']:.1f}; "
+          f"points run ATE {sp['ate']:.6f} m, per-frame ms median "
+          f"{sp['ms_median']:.2f} p90 {sp['ms_p90']:.2f}", flush=True)
     print(json.dumps(report), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ import torch
 
 from plsvo_torch.config import CapacityConfig, Config, MeshConfig, PipelineConfig
 from plsvo_torch.device import resolve_device
-from plsvo_torch.ops.depth_filter import PointSeeds
+from plsvo_torch.ops.depth_filter import LineSeeds, PointSeeds
 from plsvo_torch.pipeline.state import FrameState, MapState
 
 
@@ -54,10 +54,19 @@ def map_state_from_numpy(d: dict, cfg: Config, n_levels: int, img_shape,
     return m
 
 
-def point_seeds_from_numpy(d: dict, device=None) -> PointSeeds:
-    """PointSeeds from a dict of its columns."""
+def _seed_table(cls, d: dict, device):
     device = resolve_device(device)
     dt = {"kf_idx": torch.int32, "level": torch.int32, "batch_id": torch.int32,
           "alive": torch.bool}
-    return PointSeeds(**{k: _t(d[k], device).to(dt.get(k, torch.float32))
-                         for k in PointSeeds._fields})
+    return cls(**{k: _t(d[k], device).to(dt.get(k, torch.float32))
+                  for k in cls._fields})
+
+
+def point_seeds_from_numpy(d: dict, device=None) -> PointSeeds:
+    """PointSeeds from a dict of its columns."""
+    return _seed_table(PointSeeds, d, device)
+
+
+def line_seeds_from_numpy(d: dict, device=None) -> LineSeeds:
+    """LineSeeds from a dict of its columns."""
+    return _seed_table(LineSeeds, d, device)

@@ -1,9 +1,10 @@
 """Bayesian depth filter: vectorized recursive inverse-depth estimation.
 
-Port of the point-seed part of `plsvo_tpu/ops/depth_filter.py`
-(Vogiatzis & Hernandez Gaussian x Beta model; all seeds update in one
-batched pass per frame). Line seeds are not ported: `update_seeds_combined`
-raises for has_ln=True.
+Port of `plsvo_tpu/ops/depth_filter.py` (Vogiatzis & Hernandez Gaussian x
+Beta model; all seeds update in one batched pass per frame). A line seed is
+two endpoint seeds that share their Beta parameters: both endpoints run the
+point-seed chain, concatenated with the point seeds into one batch
+(`update_seeds_combined`), and update only when both matched.
 """
 from __future__ import annotations
 
@@ -34,17 +35,46 @@ class PointSeeds(NamedTuple):
     alive: torch.Tensor  # (S,) bool
 
 
-def empty_point_seeds(capacity: int, device=None) -> PointSeeds:
+class LineSeeds(NamedTuple):
+    kf_idx: torch.Tensor  # (S,) int32 anchor keyframe slot
+    s_uv: torch.Tensor  # (S,2) start endpoint px (level-0)
+    e_uv: torch.Tensor  # (S,2)
+    sf: torch.Tensor  # (S,3) start endpoint unit bearing
+    ef: torch.Tensor  # (S,3)
+    level: torch.Tensor  # (S,) int32
+    mu_s: torch.Tensor  # (S,) inverse-depth mean of the start endpoint
+    sigma2_s: torch.Tensor
+    z_range_s: torch.Tensor
+    mu_e: torch.Tensor
+    sigma2_e: torch.Tensor
+    z_range_e: torch.Tensor
+    a: torch.Tensor  # (S,) shared Beta parameters
+    b: torch.Tensor
+    batch_id: torch.Tensor  # (S,) int32
+    alive: torch.Tensor  # (S,) bool
+
+
+_INT_COLS = ("kf_idx", "level", "batch_id")
+
+
+def _zeros_table(cls, capacity: int, device, widths):
     device = resolve_device(device)
+    out = {}
+    for name in cls._fields:
+        dtype = (torch.bool if name == "alive" else
+                 torch.int32 if name in _INT_COLS else torch.float32)
+        out[name] = torch.zeros((capacity,) + widths.get(name, ()),
+                                dtype=dtype, device=device)
+    return cls(**out)
 
-    def z(shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=device)
 
-    return PointSeeds(
-        kf_idx=z(capacity, torch.int32), uv=z((capacity, 2)), f=z((capacity, 3)),
-        level=z(capacity, torch.int32), mu=z(capacity), sigma2=z(capacity),
-        z_range=z(capacity), a=z(capacity), b=z(capacity),
-        batch_id=z(capacity, torch.int32), alive=z(capacity, torch.bool))
+def empty_line_seeds(capacity: int, device=None) -> LineSeeds:
+    return _zeros_table(LineSeeds, capacity, device,
+                        {"s_uv": (2,), "e_uv": (2,), "sf": (3,), "ef": (3,)})
+
+
+def empty_point_seeds(capacity: int, device=None) -> PointSeeds:
+    return _zeros_table(PointSeeds, capacity, device, {"uv": (2,), "f": (3,)})
 
 
 def seed_init_params(depth_mean, depth_min):
@@ -311,6 +341,11 @@ def _seed_work_priority(seeds: PointSeeds, kf_R_w, kf_t_w, img_shape,
     return torch.where(visible, prio, torch.full_like(prio, -1.0))
 
 
+def _slice_result(res: SeedUpdateResult, lo: int, hi: int) -> SeedUpdateResult:
+    return SeedUpdateResult(PointSeeds(*[a[lo:hi] for a in res.seeds]),
+                            *[a[lo:hi] for a in res[1:]])
+
+
 def update_seeds_combined(pt_seeds, ln_seeds, kf_R_w, kf_t_w, kf_flat,
                           cur_pyr, R_w_cur, t_w_cur, fx, fy, cx, cy,
                           batch_counter, *, has_pt: bool, has_ln: bool,
@@ -318,42 +353,135 @@ def update_seeds_combined(pt_seeds, ln_seeds, kf_R_w, kf_t_w, kf_flat,
                           max_seed_kfs: int = 3,
                           sigma_conv_factor: float = 200.0,
                           max_search: int = 0, pt_work: int = 0):
-    """Point seeds through the epipolar/align pipeline; with pt_work > 0
-    only the pt_work highest-priority seeds run it, the rest are carried
-    (aging still applies). Returns (SeedUpdateResult | None, None)."""
-    if has_ln:
-        raise NotImplementedError("line seeds (has_ls=True) are not ported")
-    if not has_pt:
-        return None, None
+    """Point seeds and both line-seed endpoints through ONE epipolar/align
+    batch (one K2 launch). With pt_work > 0 only the pt_work
+    highest-priority point seeds run the chain; the rest are carried
+    (aging still applies). Returns (SeedUpdateResult | None,
+    LineSeedUpdateResult | None) in the row spaces of the inputs."""
     kw = dict(patch_size=patch_size, n_epi_steps=n_epi_steps,
               max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor,
               max_search=max_search)
-    args = (kf_R_w, kf_t_w, kf_flat, cur_pyr, R_w_cur, t_w_cur,
-            fx, fy, cx, cy, batch_counter)
-    Wp_full = pt_seeds.mu.shape[0]
-    if not (pt_work and pt_work < Wp_full):
-        return update_point_seeds(pt_seeds, *args, **kw), None
-    prio = _seed_work_priority(
-        pt_seeds, kf_R_w, kf_t_w, cur_pyr[0].shape, len(cur_pyr) - 1,
-        R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter,
-        patch_size=patch_size, n_epi_steps=n_epi_steps,
-        max_seed_kfs=max_seed_kfs)
-    p_sel, pt_idx = top_k_stable(prio, pt_work)
-    sub = PointSeeds(*[a[pt_idx] for a in pt_seeds])
-    sub_res = update_point_seeds(sub, *args, **kw)
-    aged = (batch_counter - pt_seeds.batch_id) > max_seed_kfs
-    base = pt_seeds._replace(alive=pt_seeds.alive & ~aged)
-    idx_w = torch.where(p_sel > 0.0, pt_idx, torch.full_like(pt_idx, Wp_full))
-    seeds_out = PointSeeds(*[scatter_drop(full, idx_w, new)
-                             for full, new in zip(base, sub_res.seeds)])
-    zb = torch.zeros(Wp_full, dtype=torch.bool, device=prio.device)
-    zf = torch.zeros(Wp_full, dtype=torch.float32, device=prio.device)
-    return SeedUpdateResult(
-        seeds=seeds_out,
-        converged=scatter_drop(zb, idx_w, sub_res.converged),
-        matched=scatter_drop(zb, idx_w, sub_res.matched),
-        depth_converged=scatter_drop(zf, idx_w, sub_res.depth_converged),
-        skipped=scatter_drop(zb, idx_w, sub_res.skipped)), None
+    parts = []
+    pt_idx = None
+    if has_pt:
+        Wp_full = pt_seeds.mu.shape[0]
+        if pt_work and pt_work < Wp_full:
+            prio = _seed_work_priority(
+                pt_seeds, kf_R_w, kf_t_w, cur_pyr[0].shape, len(cur_pyr) - 1,
+                R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter,
+                patch_size=patch_size, n_epi_steps=n_epi_steps,
+                max_seed_kfs=max_seed_kfs)
+            p_sel, pt_idx = top_k_stable(prio, pt_work)
+            parts.append(PointSeeds(*[a[pt_idx] for a in pt_seeds]))
+        else:
+            parts.append(pt_seeds)
+    if has_ln:
+        parts.append(_line_endpoint_view(ln_seeds, True))
+        parts.append(_line_endpoint_view(ln_seeds, False))
+    if not parts:
+        return None, None
+    combined = PointSeeds(*[torch.cat(xs) for xs in zip(*parts)])
+    res = update_point_seeds(combined, kf_R_w, kf_t_w, kf_flat, cur_pyr,
+                             R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter,
+                             **kw)
+    off = 0
+    pt_res = None
+    if has_pt:
+        off = parts[0].mu.shape[0]
+        pt_res = _slice_result(res, 0, off)
+        if pt_idx is not None:
+            # worked rows scatter back into the full row space; the others
+            # are carried with aging, not converged or matched this frame
+            aged = (batch_counter - pt_seeds.batch_id) > max_seed_kfs
+            base = pt_seeds._replace(alive=pt_seeds.alive & ~aged)
+            idx_w = torch.where(p_sel > 0.0, pt_idx,
+                                torch.full_like(pt_idx, Wp_full))
+            zb = torch.zeros(Wp_full, dtype=torch.bool, device=prio.device)
+            zf = torch.zeros(Wp_full, dtype=torch.float32, device=prio.device)
+            pt_res = SeedUpdateResult(
+                seeds=PointSeeds(*[scatter_drop(full, idx_w, new)
+                                   for full, new in zip(base, pt_res.seeds)]),
+                converged=scatter_drop(zb, idx_w, pt_res.converged),
+                matched=scatter_drop(zb, idx_w, pt_res.matched),
+                depth_converged=scatter_drop(zf, idx_w, pt_res.depth_converged),
+                skipped=scatter_drop(zb, idx_w, pt_res.skipped))
+    ln_res = None
+    if has_ln:
+        Wl = ln_seeds.mu_s.shape[0]
+        ln_res = _combine_line_endpoint_results(
+            ln_seeds, _slice_result(res, off, off + Wl),
+            _slice_result(res, off + Wl, off + 2 * Wl), batch_counter,
+            max_seed_kfs, sigma_conv_factor)
+    return pt_res, ln_res
+
+
+class LineSeedUpdateResult(NamedTuple):
+    seeds: LineSeeds
+    converged: torch.Tensor  # (S,)
+    matched: torch.Tensor  # (S,) both endpoints matched
+    depth_s: torch.Tensor  # (S,) 1 / mu_s
+    depth_e: torch.Tensor
+    skipped: torch.Tensor  # (S,) either endpoint budget-starved
+
+
+def _line_endpoint_view(seeds: LineSeeds, start: bool) -> PointSeeds:
+    return PointSeeds(
+        kf_idx=seeds.kf_idx, uv=seeds.s_uv if start else seeds.e_uv,
+        f=seeds.sf if start else seeds.ef, level=seeds.level,
+        mu=seeds.mu_s if start else seeds.mu_e,
+        sigma2=seeds.sigma2_s if start else seeds.sigma2_e,
+        z_range=seeds.z_range_s if start else seeds.z_range_e,
+        a=seeds.a, b=seeds.b, batch_id=seeds.batch_id, alive=seeds.alive)
+
+
+def _combine_line_endpoint_results(seeds: LineSeeds, rs: SeedUpdateResult,
+                                   re_: SeedUpdateResult, batch_counter,
+                                   max_seed_kfs: int,
+                                   sigma_conv_factor: float
+                                   ) -> LineSeedUpdateResult:
+    """Fuse the two endpoint updates: both update only when both matched,
+    the Beta parameters fuse as a = max, b = min."""
+    both = rs.matched & re_.matched
+    mu_s = torch.where(both, rs.seeds.mu, seeds.mu_s)
+    s2_s = torch.where(both, rs.seeds.sigma2, seeds.sigma2_s)
+    mu_e = torch.where(both, re_.seeds.mu, seeds.mu_e)
+    s2_e = torch.where(both, re_.seeds.sigma2, seeds.sigma2_e)
+    a = torch.where(both, torch.maximum(rs.seeds.a, re_.seeds.a), seeds.a)
+    b = torch.where(both, torch.minimum(rs.seeds.b, re_.seeds.b),
+                    torch.where(rs.matched | re_.matched, seeds.b,
+                                torch.where(seeds.alive, seeds.b + 1.0,
+                                            seeds.b)))
+    sig_s = torch.sqrt(s2_s.clamp_min(0.0))
+    sig_e = torch.sqrt(s2_e.clamp_min(0.0))
+    converged = (seeds.alive & (sig_s < seeds.z_range_s / sigma_conv_factor)
+                 & (sig_e < seeds.z_range_e / sigma_conv_factor))
+    aged = (batch_counter - seeds.batch_id) > max_seed_kfs
+    dead = (~torch.isfinite(mu_s) | ~torch.isfinite(mu_e) | (mu_s < 0)
+            | (mu_e < 0) | aged)
+    alive_out = seeds.alive & ~dead & ~converged
+    return LineSeedUpdateResult(
+        seeds=seeds._replace(mu_s=mu_s, sigma2_s=s2_s, mu_e=mu_e,
+                             sigma2_e=s2_e, a=a, b=b, alive=alive_out),
+        converged=converged, matched=both,
+        depth_s=1.0 / mu_s.clamp_min(1e-10), depth_e=1.0 / mu_e.clamp_min(1e-10),
+        skipped=rs.skipped | re_.skipped)
+
+
+def update_line_seeds(seeds: LineSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
+                      R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter, *,
+                      patch_size: int = 8, n_epi_steps: int = 64,
+                      max_seed_kfs: int = 3,
+                      sigma_conv_factor: float = 200.0) -> LineSeedUpdateResult:
+    """Line seeds alone: each endpoint runs the point-seed chain in a batch
+    of its own, then the two updates fuse."""
+    kw = dict(patch_size=patch_size, n_epi_steps=n_epi_steps,
+              max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor)
+    args = (kf_R_w, kf_t_w, kf_flat, cur_pyr, R_w_cur, t_w_cur, fx, fy, cx,
+            cy, batch_counter)
+    rs = update_point_seeds(_line_endpoint_view(seeds, True), *args, **kw)
+    re_ = update_point_seeds(_line_endpoint_view(seeds, False), *args, **kw)
+    return _combine_line_endpoint_results(seeds, rs, re_, batch_counter,
+                                          max_seed_kfs, sigma_conv_factor)
 
 
 def scatter_new_point_seeds(full: PointSeeds, rows, mask, kf_idx, uv, f, level,
@@ -404,3 +532,60 @@ def scatter_new_point_seeds_blob(full: PointSeeds, blob: torch.Tensor, *,
     mu, sigma2, z_range, batch_id = (float(v) for v in tail.cpu())
     return scatter_new_point_seeds(full, rows, mask, kf_idx, uv, f, level, mu,
                                    sigma2, z_range, int(batch_id))
+
+
+def scatter_new_line_seeds(full: LineSeeds, rows, mask, kf_idx, s_uv, e_uv, sf,
+                           ef, level, mu: float, sigma2: float, z_range: float,
+                           batch_id: int) -> LineSeeds:
+    """Install new line seeds into rows[mask] (other rows dropped); both
+    endpoints take the same inverse-depth prior."""
+    S = full.mu_s.shape[0]
+    r = torch.where(mask, rows.long(), torch.full_like(rows.long(), S))
+    B = rows.shape[0]
+    dev = full.mu_s.device
+
+    def const(v, dtype=torch.float32):
+        return torch.full((B,), v, dtype=dtype, device=dev)
+
+    return LineSeeds(
+        kf_idx=scatter_drop(full.kf_idx, r, kf_idx),
+        s_uv=scatter_drop(full.s_uv, r, s_uv),
+        e_uv=scatter_drop(full.e_uv, r, e_uv),
+        sf=scatter_drop(full.sf, r, sf), ef=scatter_drop(full.ef, r, ef),
+        level=scatter_drop(full.level, r, level),
+        mu_s=scatter_drop(full.mu_s, r, const(mu)),
+        sigma2_s=scatter_drop(full.sigma2_s, r, const(sigma2)),
+        z_range_s=scatter_drop(full.z_range_s, r, const(z_range)),
+        mu_e=scatter_drop(full.mu_e, r, const(mu)),
+        sigma2_e=scatter_drop(full.sigma2_e, r, const(sigma2)),
+        z_range_e=scatter_drop(full.z_range_e, r, const(z_range)),
+        a=scatter_drop(full.a, r, const(10.0)),
+        b=scatter_drop(full.b, r, const(10.0)),
+        batch_id=scatter_drop(full.batch_id, r, const(batch_id, torch.int32)),
+        alive=scatter_drop(full.alive, r, mask))
+
+
+def scatter_new_line_seeds_blob(full: LineSeeds, blob: torch.Tensor, *,
+                                B: int) -> LineSeeds:
+    """scatter_new_line_seeds from one packed f32 blob: rows(B) mask(B)
+    kf(B) s_uv(B,2) e_uv(B,2) sf(B,3) ef(B,3) level(B) mu sigma2 z_range
+    batch_id."""
+    o = 0
+
+    def take(n):
+        nonlocal o
+        a = blob[o:o + n]
+        o += n
+        return a
+
+    rows = take(B).long()
+    mask = take(B) > 0.5
+    kf_idx = take(B).to(torch.int32)
+    s_uv = take(2 * B).reshape(B, 2)
+    e_uv = take(2 * B).reshape(B, 2)
+    sf = take(3 * B).reshape(B, 3)
+    ef = take(3 * B).reshape(B, 3)
+    level = take(B).to(torch.int32)
+    mu, sigma2, z_range, batch_id = (float(v) for v in take(4).cpu())
+    return scatter_new_line_seeds(full, rows, mask, kf_idx, s_uv, e_uv, sf, ef,
+                                  level, mu, sigma2, z_range, int(batch_id))

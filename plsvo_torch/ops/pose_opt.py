@@ -192,3 +192,13 @@ def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
         n_obs_pt=inp.pt_valid.sum().to(torch.int32),
         n_obs_seg=inp.seg_valid.sum().to(torch.int32),
         scale_pt=scale_pt0, scale_seg=scale_sg0, chi2=chi2)
+
+
+def line_coeffs_from_bearings(sf: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:
+    """Observed 2-D infinite-line coefficients on the unit plane from the two
+    endpoint bearings, scaled so that (l0, l1) is a unit normal."""
+    sp = torch.cat([sf[..., :2] / _safe_z(sf[..., 2:3]), torch.ones_like(sf[..., :1])], -1)
+    ep = torch.cat([ef[..., :2] / _safe_z(ef[..., 2:3]), torch.ones_like(ef[..., :1])], -1)
+    line = torch.linalg.cross(sp, ep)
+    n = torch.linalg.norm(line[..., :2], dim=-1, keepdim=True)
+    return line / n.clamp_min(1e-12)

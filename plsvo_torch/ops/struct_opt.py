@@ -1,7 +1,8 @@
 """Structure-only optimization: refine 3-D landmarks with poses fixed.
 
-Port of `plsvo_tpu/ops/struct_opt.py::optimize_points` (per-landmark 3x3
-GN with chi2 rollback, a fixed number of iterations: no host sync).
+Port of `plsvo_tpu/ops/struct_opt.py`: `optimize_points` (per-landmark 3x3
+GN with chi2 rollback, a fixed number of iterations: no host sync) and
+`optimize_segments` (the two endpoints of each line solved as points).
 """
 from __future__ import annotations
 
@@ -61,3 +62,12 @@ def optimize_points(pos_w, obs: StructObs, valid, *, n_iter: int = 5):
         p = torch.where(improved[:, None], p_new, p)
         best = torch.where(improved, chi2_new, best)
     return p, best < chi2_init
+
+
+def optimize_segments(spos_w, epos_w, s_obs: StructObs, e_obs: StructObs,
+                      valid, *, n_iter: int = 5):
+    """Two independent endpoint solves. Returns (new_spos, new_epos,
+    start_improved, end_improved)."""
+    sp, s_ok = optimize_points(spos_w, s_obs, valid, n_iter=n_iter)
+    ep, e_ok = optimize_points(epos_w, e_obs, valid, n_iter=n_iter)
+    return sp, ep, s_ok, e_ok

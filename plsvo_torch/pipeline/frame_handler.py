@@ -10,10 +10,10 @@ Port of the synchronous path of `plsvo_tpu/pipeline/frame_handler.py`:
                keyframe decision, new seeds at keyframes
     RELOC   -> align against the closest keyframe
 
-The port covers the points-only configuration (has_ls=False,
-init_ls=False, loba_enabled=False, pipelined=False) on a pinhole camera;
-the other settings raise NotImplementedError. Host bookkeeping is the JAX
-package's numpy code, so the host decisions match.
+The port covers points, edgelets and line segments in the sync path
+(loba_enabled=False, pipelined=False) on a pinhole camera; the other
+settings raise NotImplementedError. Host bookkeeping is the JAX package's
+numpy code, so the host decisions match.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from plsvo_torch.image import build_pyramid
 from plsvo_torch.ops import depth_filter as df
 from plsvo_torch.ops import detection, homography
 from plsvo_torch.ops import klt as klt_ops
+from plsvo_torch.ops import lines as line_ops
 from plsvo_torch.ops import sparse_align
 from plsvo_torch.pipeline import fused
 from plsvo_torch.pipeline.state import (FrameState, MapState, ST_CANDIDATE,
@@ -60,16 +61,36 @@ class FrameResult:
     t_f_w: np.ndarray
 
 
-def _kf_detect_program(pyr, occ_uv, occ_ok, *, n_pyr, cell_size,
-                       score_threshold, mag_threshold, width, height):
-    """Keyframe seed detection: FAST grid + edgelets + cell occupancy."""
+def _detect_segments_levels(pyr, n_levels: int):
+    """Raw tiled line candidates of the first n_levels pyramid levels, in
+    level-0 pixels (the greedy grid dedup runs on the host after the
+    fetch)."""
+    parts = []
+    for lvl in range(n_levels):
+        det = line_ops.detect_segments_tiled(pyr[lvl], n_peaks=64,
+                                             run_gap_px=3.0, dist_tol=1.2)
+        if lvl:
+            s = float(1 << lvl)
+            det = det._replace(sp=det.sp * s, ep=det.ep * s,
+                               length=det.length * s)
+        parts.append(det)
+    return parts[0] if len(parts) == 1 else line_ops.SegmentTable(
+        *[torch.cat(xs) for xs in zip(*parts)])
+
+
+def _kf_detect_program(pyr, occ_uv, occ_ok, *, use_ls, n_pyr, n_pyr_segs,
+                       cell_size, score_threshold, mag_threshold, width,
+                       height):
+    """Keyframe seed detection: FAST grid + edgelets + tiled line segments
+    (raw candidates) + cell occupancy."""
     grid = detection.detect_fast_grid(pyr[:n_pyr], cell_size=cell_size,
                                       score_threshold=score_threshold)
     egrid = detection.detect_edgelets_grid(pyr[0], cell_size=cell_size,
                                            mag_threshold=mag_threshold)
+    segs = _detect_segments_levels(pyr, n_pyr_segs) if use_ls else None
     occupied = detection.occupancy_from_positions(occ_uv, occ_ok, width,
                                                   height, cell_size)
-    return grid, occupied, egrid
+    return grid, segs, occupied, egrid
 
 
 def _check_supported(cam, cfg: Config):
@@ -77,8 +98,7 @@ def _check_supported(cam, cfg: Config):
         raise NotImplementedError(f"camera model {type(cam).__name__} is not "
                                   "ported (only PinholeCamera)")
     pl = cfg.pipeline
-    for name, bad in (("has_ls", pl.has_ls), ("init_ls", pl.init_ls),
-                      ("loba_enabled", pl.loba_enabled),
+    for name, bad in (("loba_enabled", pl.loba_enabled),
                       ("pipelined", pl.pipelined),
                       ("has_pt", not pl.has_pt),
                       ("use_edgelets", not pl.use_edgelets),
@@ -125,6 +145,16 @@ class FrameHandlerMono:
         fvec = np.stack([x, y, np.ones_like(x)], -1)
         return (fvec / np.linalg.norm(fvec, axis=-1, keepdims=True)).astype(np.float32)
 
+    @staticmethod
+    def _np_line_coeffs(sf: np.ndarray, ef: np.ndarray) -> np.ndarray:
+        zs = np.where(np.abs(sf[..., 2:3]) < 1e-10, 1e-10, sf[..., 2:3])
+        ze = np.where(np.abs(ef[..., 2:3]) < 1e-10, 1e-10, ef[..., 2:3])
+        sp = np.concatenate([sf[..., :2] / zs, np.ones_like(zs)], -1)
+        ep = np.concatenate([ef[..., :2] / ze, np.ones_like(ze)], -1)
+        line = np.cross(sp, ep)
+        n = np.linalg.norm(line[..., :2], axis=-1, keepdims=True)
+        return (line / np.maximum(n, 1e-12)).astype(np.float32)
+
     def _dev(self, a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
 
@@ -150,22 +180,43 @@ class FrameHandlerMono:
         self.permon.timers["tot_time"] = time.perf_counter() - t_tot
         self.results.append(res)
         self.permon.log("img_align_n_tracked", res.n_pt_matches)
+        self.permon.log("n_seg_tracked", res.n_seg_matches)
         return res
 
     # ------------------------------------------------------------------
-    def _detect_features(self, pyr):
+    def _detect_features(self, pyr, use_ls: bool):
+        """FAST grid corners (and raw line candidates when use_ls)."""
         pl = self.cfg.pipeline
         grid = detection.detect_fast_grid(
             pyr[: pl.n_pyr_levels], cell_size=pl.grid_size,
             score_threshold=pl.triang_min_corner_score)
-        return grid
+        segs = _detect_segments_levels(pyr, pl.n_pyr_levels_segs) if use_ls else None
+        return grid, segs
+
+    def _dedup_segments_host(self, det) -> line_ops.SegmentTable:
+        """Grid dedup of a fetched raw candidate table (numpy); the length
+        gate is lsd_min_length * H*W/(H+W) px."""
+        pl = self.cfg.pipeline
+        W, H = self.cam.width, self.cam.height
+        min_len = pl.lsd_min_length * (W * H) / (W + H)
+        return line_ops.dedup_segments_grid_np(
+            det, width=W, height=H, cell_size=pl.grid_size_segs,
+            max_segs=self.cfg.caps.max_segs, min_length=min_len)
 
     def _process_first(self, pyr, ts) -> FrameResult:
+        pl = self.cfg.pipeline
         frame = FrameState.empty(self.cfg, self.frame_id, ts, pyr,
                                  np.eye(3, dtype=np.float32),
                                  np.zeros(3, np.float32))
-        grid = fused.fetch(self._detect_features(pyr))
-        targets = grid.uv[grid.valid]
+        grid, segs = fused.fetch(self._detect_features(
+            pyr, use_ls=pl.has_ls and pl.init_ls))
+        targets = [grid.uv[grid.valid]]
+        if segs is not None:
+            # each segment gives KLT targets at its start, middle and end
+            segs = self._dedup_segments_host(segs)
+            sp, ep = segs.sp[segs.valid], segs.ep[segs.valid]
+            targets += [sp + a * (ep - sp) for a in (0.0, 0.5, 1.0)]
+        targets = np.concatenate(targets, 0)
         if len(targets) < self.cfg.pipeline.init_min_fts:
             return FrameResult(frame.frame_id, self.stage, QUALITY_INSUFFICIENT,
                                0, 0, False, frame.R_f_w, frame.t_f_w)
@@ -255,12 +306,16 @@ class FrameHandlerMono:
             xyz_ref=self._dev((frame.pt_f * depth[:, None]).astype(np.float32)),
             uv_ref=self._dev(frame.pt_uv.astype(np.float32)),
             valid=self._dev(alive_lm))
-        G = self.cfg.caps.max_segs
-        z2 = self._dev(np.zeros((G, 2), np.float32))
-        z3 = self._dev(np.zeros((G, 3), np.float32))
-        z1 = self._dev(np.zeros(G, np.float32))
+        sv = frame.seg_valid & (frame.seg_lm >= 0)
+        slm = np.where(sv, frame.seg_lm, 0)
+        alive_s = sv & (self.map.ln_status[slm] > 0)
+        s_depth = np.linalg.norm(self.map.ln_spos[slm] - center[None], axis=-1)
+        e_depth = np.linalg.norm(self.map.ln_epos[slm] - center[None], axis=-1)
         segs = sparse_align.make_align_segments(
-            z2, z2, z3, z3, z1, z1, self._dev(np.zeros(G, bool)),
+            self._dev(frame.seg_suv), self._dev(frame.seg_euv),
+            self._dev(frame.seg_sf), self._dev(frame.seg_ef),
+            self._dev(s_depth.astype(np.float32)),
+            self._dev(e_depth.astype(np.float32)), self._dev(alive_s),
             n_samples=self.cfg.caps.n_line_samples, fx=self._fx, fy=self._fy,
             cx=self._cx, cy=self._cy)
         return pts, segs
@@ -299,7 +354,7 @@ class FrameHandlerMono:
             n_line_samples=self.cfg.caps.n_line_samples,
             poseopt_iters=pl.poseoptim_num_iter, poseopt_iters_ref=0,
             poseopt_thresh=pl.poseoptim_thresh,
-            n_pyr_use=pl.n_pyr_levels, has_ls=False,
+            n_pyr_use=pl.n_pyr_levels, has_ls=pl.has_ls,
             has_edgelets=pl.use_edgelets and pl.has_pt,
             n_struct_pts=pl.structureoptim_max_pts,
             n_struct_segs=pl.structureoptim_max_segs,
@@ -323,6 +378,7 @@ class FrameHandlerMono:
             specs=fused.last_blob_specs(caps.max_fts, caps.max_segs,
                                         caps.max_points, caps.max_lines),
             update_pt_seeds=bool(self._seed_alive.any()),
+            update_ln_seeds=bool(self._lnseed_alive.any()),
             max_seed_kfs=pl.max_seed_kfs,
             sigma_conv_factor=pl.seed_convergence_sigma2_thresh,
             seed_search_budget=pl.seed_search_budget,
@@ -330,13 +386,15 @@ class FrameHandlerMono:
             seed_work_budget=pl.seed_work_budget,
             n_pyr_seed=pl.n_pyr_levels,
             pt_width=self._live_width(self._seed_alive, caps.max_seeds, 128),
+            ln_width=self._live_width(self._lnseed_alive, caps.max_seed_segs,
+                                      64),
             **self._fused_kwargs())
 
     def _step_inputs(self, pyr):
         last = self.last_frame
         return (last.pyr, pyr, self.map.kf_atlas_flat(self.cfg.pipeline.n_pyr_levels),
                 self._last_blob(last), fused.map_tables_from_state(self.map),
-                self.pt_seeds, self.batch_counter,
+                self.pt_seeds, self.ln_seeds, self.batch_counter,
                 self._fx, self._fy, self._cx, self._cy)
 
     def _process_frame(self, pyr, ts) -> FrameResult:
@@ -347,10 +405,12 @@ class FrameHandlerMono:
             step = fused.track_frame_step(*self._step_inputs(pyr),
                                           **self._step_kwargs())
         self.pt_seeds = step.pt_seeds
+        self.ln_seeds = step.ln_seeds
         with self.permon.timer("fetch"):
-            res, pt_conv = fused.fetch((step.fused, step.pt_conv))
-        if pt_conv is not None:
-            self._apply_harvest(pt_conv, result_frame_id=frame.frame_id)
+            res, pt_conv, ln_conv = fused.fetch((step.fused, step.pt_conv,
+                                                 step.ln_conv))
+        # converged seeds become landmarks visible from the next frame
+        self._apply_harvest(pt_conv, ln_conv, result_frame_id=frame.frame_id)
         return self._post_fused(frame, res)
 
     def _post_fused(self, frame: FrameState, res) -> FrameResult:
@@ -359,6 +419,9 @@ class FrameHandlerMono:
         pl = self.cfg.pipeline
         last = self.last_frame
         m = self.map
+        # lines that the photometric gate of the alignment dropped lose
+        # their landmark link
+        last.seg_lm[last.seg_valid & ~res.align_seg_alive] = -1
         pt = res.pt
         lm = pt.lm_idx
         matched = pt.matched
@@ -386,9 +449,41 @@ class FrameHandlerMono:
         frame.pt_lm[:n_pt] = lm[rows]
         frame.pt_valid[:] = False
         frame.pt_valid[:n_pt] = True
-        n_seg = 0
 
-        if n_pt_gate < pl.quality_min_fts:
+        n_seg = n_seg_gate = 0
+        if pl.has_ls:
+            seg = res.seg
+            slm = seg.lm_idx
+            smat = seg.matched
+            n_seg_gate = int(smat.sum())
+            m.ln_n_succ[slm[smat]] += 1
+            m.ln_n_fail[slm[seg.selected & ~smat]] += 1
+            c_dead = (m.ln_status == ST_CANDIDATE) & (m.ln_n_fail > 30)
+            u_dead = (m.ln_status == ST_UNKNOWN) & (m.ln_n_fail > 15)
+            ldead = c_dead | u_dead
+            m.ln_status[ldead] = ST_DELETED
+            lprom = (m.ln_status == ST_UNKNOWN) & (m.ln_n_succ > 10)
+            m.ln_status[lprom] = ST_GOOD
+            if (ldead | lprom).any():
+                m.invalidate("ln_status")
+            if ldead.any():
+                m.kf_seg_lm[np.isin(m.kf_seg_lm, np.where(ldead)[0])] = -1
+            skeep = smat & res.seg_inlier & (m.ln_status[slm] != ST_DELETED)
+            srows = np.where(skeep)[0][: self.cfg.caps.max_segs]
+            n_seg = len(srows)
+            frame.seg_suv[:n_seg] = seg.s_uv[srows]
+            frame.seg_euv[:n_seg] = seg.e_uv[srows]
+            frame.seg_sf[:n_seg] = self._np_unproject(seg.s_uv[srows])
+            frame.seg_ef[:n_seg] = self._np_unproject(seg.e_uv[srows])
+            frame.seg_line[:n_seg] = self._np_line_coeffs(
+                frame.seg_sf[:n_seg], frame.seg_ef[:n_seg])
+            frame.seg_level[:n_seg] = seg.level[srows]
+            frame.seg_lm[:n_seg] = slm[srows]
+            frame.seg_valid[:] = False
+            frame.seg_valid[:n_seg] = True
+
+        # the gate counts point and segment matches together
+        if n_pt_gate + n_seg_gate < pl.quality_min_fts:
             frame.R_f_w, frame.t_f_w = last.R_f_w.copy(), last.t_f_w.copy()
             self.stage = STAGE_RELOCALIZING
             return FrameResult(frame.frame_id, STAGE_DEFAULT,
@@ -410,6 +505,13 @@ class FrameHandlerMono:
             m.pt_pos[rws] = res.st_pt_pos[vsel]
             m.pt_last_optim[rws] = frame.frame_id
             m.invalidate("pt_pos")
+        lsel = res.st_ln_valid
+        if lsel.any():
+            rws = res.st_ln_lm[lsel]
+            m.ln_spos[rws] = res.st_ln_spos[lsel]
+            m.ln_epos[rws] = res.st_ln_epos[lsel]
+            m.ln_last_optim[rws] = frame.frame_id
+            m.invalidate("ln_spos", "ln_epos")
 
         quality = self._tracking_quality(n_pt, n_seg)
         if quality == QUALITY_INSUFFICIENT:
@@ -460,6 +562,8 @@ class FrameHandlerMono:
         m = self.map
         lm = frame.pt_lm[frame.pt_valid & (frame.pt_lm >= 0)]
         m.pt_status[lm[m.pt_status[lm] == ST_CANDIDATE]] = ST_UNKNOWN
+        sl = frame.seg_lm[frame.seg_valid & (frame.seg_lm >= 0)]
+        m.ln_status[sl[m.ln_status[sl] == ST_CANDIDATE]] = ST_UNKNOWN
         max_kfs = self.cfg.pipeline.max_n_kfs or self.cfg.caps.max_kfs
         max_kfs = min(max_kfs, self.cfg.caps.max_kfs)
         if m.n_keyframes() >= max_kfs:
@@ -478,7 +582,9 @@ class FrameHandlerMono:
         cap = caps.max_fts + 2 * caps.max_segs
         occ_uv = np.zeros((cap, 2), np.float32)
         occ_ok = np.zeros(cap, bool)
-        parts = frame.pt_uv[frame.pt_valid]
+        parts = np.concatenate([
+            frame.pt_uv[frame.pt_valid], frame.seg_suv[frame.seg_valid],
+            frame.seg_euv[frame.seg_valid]], 0)
         n_occ = min(len(parts), cap)
         occ_uv[:n_occ] = parts[:n_occ]
         occ_ok[:n_occ] = True
@@ -489,7 +595,8 @@ class FrameHandlerMono:
         occ_uv, occ_ok = self._occupancy_inputs(frame)
         return _kf_detect_program(
             frame.pyr, self._dev(occ_uv), self._dev(occ_ok),
-            n_pyr=pl.n_pyr_levels, cell_size=pl.grid_size,
+            use_ls=pl.has_ls, n_pyr=pl.n_pyr_levels,
+            n_pyr_segs=pl.n_pyr_levels_segs, cell_size=pl.grid_size,
             score_threshold=pl.triang_min_corner_score,
             mag_threshold=pl.edgelet_grad_thresh,
             width=self.cam.width, height=self.cam.height)
@@ -500,11 +607,15 @@ class FrameHandlerMono:
             return
         kf_slot = int(np.where(self.map.kf_frame_id == frame.frame_id)[0][0])
         with self.permon.timer("kf_detect"):
-            grid, occupied, egrid = fused.fetch(
+            grid, segs, occupied, egrid = fused.fetch(
                 self._dispatch_seed_detection(frame))
-        self._complete_seed_init(kf_slot, d_mean, d_min, grid, occupied, egrid)
+        self._complete_seed_init(kf_slot, d_mean, d_min, grid, segs, occupied,
+                                 egrid)
 
-    def _complete_seed_init(self, kf_slot, d_mean, d_min, grid, occupied, egrid):
+    def _complete_seed_init(self, kf_slot, d_mean, d_min, grid, segs,
+                            occupied, egrid):
+        """New point and edgelet seeds in free cells; new line seeds from
+        the host-deduplicated segment candidates."""
         valid = grid.valid & ~occupied
         uv = grid.uv[valid]
         lvl = grid.level[valid]
@@ -517,6 +628,14 @@ class FrameHandlerMono:
         gdir = np.concatenate([gdir, egrid.grad_dir[e_ok]], 0)
         f = self._np_unproject(uv) if len(uv) else np.zeros((0, 3), np.float32)
         mu, sigma2, z_range = df.seed_init_params(d_mean, d_min)
+        self._install_point_seeds(kf_slot, uv, f, lvl, typ, gdir, mu, sigma2,
+                                  z_range)
+        if segs is not None:
+            self._install_line_seeds(kf_slot, self._dedup_segments_host(segs),
+                                     mu, sigma2, z_range)
+
+    def _install_point_seeds(self, kf_slot, uv, f, lvl, typ, gdir, mu, sigma2,
+                             z_range):
         free = np.where(~self._seed_alive)[0][: len(uv)]
         k = len(free)
         if not k:
@@ -548,6 +667,41 @@ class FrameHandlerMono:
         self.pt_seeds = df.scatter_new_point_seeds_blob(
             self.pt_seeds, self._dev(blob), B=B)
 
+    def _install_line_seeds(self, kf_slot, segs, mu, sigma2, z_range):
+        sp = segs.sp[segs.valid]
+        ep = segs.ep[segs.valid]
+        free = np.where(~self._lnseed_alive)[0][: len(sp)]
+        k = len(free)
+        if not k:
+            return
+        sf = self._np_unproject(sp[:k])
+        ef = self._np_unproject(ep[:k])
+        lh = self._lnseed_host
+        lh["kf_idx"][free] = kf_slot
+        lh["s_uv"][free] = sp[:k]
+        lh["e_uv"][free] = ep[:k]
+        lh["sf"][free] = sf
+        lh["ef"][free] = ef
+        lh["level"][free] = 0
+        self._lnseed_alive[free] = True
+        self._lnseed_install_frame[free] = self.frame_id
+        B = self._bucket(k, self.cfg.caps.max_seed_segs)
+        rows = np.zeros(B, np.float32)
+        rows[:k] = free
+        mask = np.zeros(B, np.float32)
+        mask[:k] = 1.0
+        z2 = np.zeros((B - k, 2), np.float32)
+        z3 = np.zeros((B - k, 3), np.float32)
+        blob = np.concatenate([
+            rows, mask, np.full(B, kf_slot, np.float32),
+            np.concatenate([sp[:k], z2]).ravel(),
+            np.concatenate([ep[:k], z2]).ravel(),
+            np.concatenate([sf, z3]).ravel(), np.concatenate([ef, z3]).ravel(),
+            np.zeros(B, np.float32),
+            np.asarray([mu, sigma2, z_range, self.batch_counter], np.float32)])
+        self.ln_seeds = df.scatter_new_line_seeds_blob(
+            self.ln_seeds, self._dev(blob), B=B)
+
     @staticmethod
     def _bucket(n: int, cap: int) -> int:
         b = 32
@@ -555,9 +709,16 @@ class FrameHandlerMono:
             b *= 2
         return min(b, cap)
 
-    def _apply_harvest(self, pt_conv, result_frame_id: int):
-        """Converged seeds become CANDIDATE landmarks; the host alive mirror
-        updates from the same fetch."""
+    def _apply_harvest(self, pt_conv, ln_conv, result_frame_id: int):
+        """Converged seeds become CANDIDATE landmarks; the host alive
+        mirrors update from the same fetch. Rows installed after the step
+        was dispatched keep the mirror's value."""
+        if pt_conv is not None:
+            self._harvest_points(pt_conv, result_frame_id)
+        if ln_conv is not None:
+            self._harvest_lines(ln_conv, result_frame_id)
+
+    def _harvest_points(self, pt_conv, result_frame_id: int):
         m = self.map
         rows_c, depth_c, n_conv, alive_new, n_starved = pt_conv
         cap = self.cfg.caps.max_seeds
@@ -582,6 +743,29 @@ class FrameHandlerMono:
             m.new_point(pos_w, int(k), sh["uv"][i], sh["f"][i],
                         int(sh["level"][i]), status=ST_CANDIDATE,
                         ftype=int(sh["type"][i]), grad_dir=sh["dir"][i])
+
+    def _harvest_lines(self, ln_conv, result_frame_id: int):
+        m = self.map
+        rows_c, ds_c, de_c, n_conv, alive_new, n_starved = ln_conv
+        cap = self.cfg.caps.max_seed_segs
+        alive_new = alive_new.copy()
+        stale = self._lnseed_install_frame > result_frame_id
+        alive_new[stale] = self._lnseed_alive[stale]
+        self._lnseed_alive[:] = alive_new
+        self.permon.log("seed_starved_ln", int(n_starved))
+        lh = self._lnseed_host
+        triples = [(int(r), float(a), float(b))
+                   for r, a, b in zip(rows_c, ds_c, de_c) if r < cap]
+        for i, ds_i, de_i in triples[: int(n_conv)]:
+            k = lh["kf_idx"][i]
+            if not m.kf_occupied[k]:
+                continue
+            Rk, tk = m.kf_R[k], m.kf_t[k]
+            spos = Rk.T @ (lh["sf"][i] * ds_i - tk)
+            epos = Rk.T @ (lh["ef"][i] * de_i - tk)
+            m.new_line(spos, epos, int(k), lh["s_uv"][i], lh["e_uv"][i],
+                       lh["sf"][i], lh["ef"][i], int(lh["level"][i]),
+                       status=ST_CANDIDATE)
 
     # ------------------------------------------------------------------
     def _relocalize(self, pyr, ts) -> FrameResult:
@@ -631,6 +815,13 @@ class FrameHandlerMono:
         fr.pt_level = m.kf_pt_level[slot].copy()
         fr.pt_lm = m.kf_pt_lm[slot].copy()
         fr.pt_valid = m.kf_pt_lm[slot] >= 0
+        fr.seg_suv = m.kf_seg_suv[slot].copy()
+        fr.seg_euv = m.kf_seg_euv[slot].copy()
+        fr.seg_sf = m.kf_seg_sf[slot].copy()
+        fr.seg_ef = m.kf_seg_ef[slot].copy()
+        fr.seg_level = m.kf_seg_level[slot].copy()
+        fr.seg_lm = m.kf_seg_lm[slot].copy()
+        fr.seg_valid = m.kf_seg_lm[slot] >= 0
         fr.is_keyframe = True
         return fr
 
@@ -644,6 +835,7 @@ class FrameHandlerMono:
         self.stage = STAGE_FIRST
         self.map = self._new_map()
         self.pt_seeds = df.empty_point_seeds(caps.max_seeds, self.device)
+        self.ln_seeds = df.empty_line_seeds(caps.max_seed_segs, self.device)
         self.last_frame = None
         self.first_frame = None
         self._first_uv = None
@@ -655,3 +847,10 @@ class FrameHandlerMono:
             "type": np.zeros(S, np.int32), "dir": np.zeros((S, 2), np.float32)}
         self._seed_alive = np.zeros(S, bool)
         self._seed_install_frame = np.full(S, -1, np.int64)
+        SL = caps.max_seed_segs
+        self._lnseed_host = {
+            "kf_idx": np.zeros(SL, np.int32), "s_uv": np.zeros((SL, 2), np.float32),
+            "e_uv": np.zeros((SL, 2), np.float32), "sf": np.zeros((SL, 3), np.float32),
+            "ef": np.zeros((SL, 3), np.float32), "level": np.zeros(SL, np.int32)}
+        self._lnseed_alive = np.zeros(SL, bool)
+        self._lnseed_install_frame = np.full(SL, -1, np.int64)

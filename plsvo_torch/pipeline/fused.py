@@ -2,10 +2,14 @@
 optimization -> structure optimization -> depth-filter seed update, with
 one packed result fetch per frame.
 
-Port of the sync path of `plsvo_tpu/pipeline/fused.py` in the points-only
-configuration (has_ls=False): the segment tables still flow through with
-every row invalid, so row spaces match the JAX package. The fetch is one
-device-side concatenation and one `.cpu()`.
+Port of the sync path of `plsvo_tpu/pipeline/fused.py`. With has_ls the
+reprojection refines points and both segment endpoints in one batch, pose
+optimization takes the segment residuals too, structure optimization
+refines the selected lines' endpoints with the points, and the seed update
+runs point seeds and both line-seed endpoints through one chain. Without
+it the segment tables flow through with every row invalid, so row spaces
+match the JAX package either way. The fetch is one device-side
+concatenation and one `.cpu()`.
 """
 from __future__ import annotations
 
@@ -72,6 +76,8 @@ class FusedResult(NamedTuple):
     align_seg_alive: torch.Tensor
     pt: reprojector.ReprojResult
     pt_inlier: torch.Tensor
+    seg: reprojector.ReprojSegResult
+    seg_inlier: torch.Tensor
     st_pt_lm: torch.Tensor
     st_pt_pos: torch.Tensor
     st_pt_valid: torch.Tensor
@@ -84,7 +90,9 @@ class FusedResult(NamedTuple):
 class FullStepResult(NamedTuple):
     fused: FusedResult
     pt_seeds: object  # PointSeeds (stays on the device)
+    ln_seeds: object  # LineSeeds (stays on the device)
     pt_conv: object  # (rows[K], depth[K], n_conv, alive (S,), n_starved) or None
+    ln_conv: object  # (rows[K], d_s[K], d_e[K], n_conv, alive, n_starved) or None
     mt: MapTables  # map tables with this frame's structure-opt applied
 
 
@@ -160,8 +168,6 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                      has_ls: bool = False, has_edgelets: bool = False,
                      n_struct_pts: int = 20, n_struct_segs: int = 20,
                      struct_iters: int = 5) -> FusedResult:
-    if has_ls:
-        raise NotImplementedError("has_ls=True (line segments) is not ported")
     dev = last.pt_uv.device
     # ---- 1. sparse image alignment against the last frame ----
     pts_in = sparse_align.AlignPoints(
@@ -178,26 +184,47 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     R_cur = ares.R @ R_last
     t_cur = ares.R @ t_last + ares.t
 
-    # ---- 2. reprojection + batched refinement (points) ----
-    pt_res = reprojector.reproject_points(
-        mt.pt_pos, mt.pt_status, mt.pt_anchor_kf, mt.pt_anchor_uv,
-        mt.pt_anchor_f, mt.pt_anchor_level, mt.pt_obs_kf, mt.pt_obs_uv,
-        mt.pt_obs_f, mt.pt_obs_level, mt.kf_R, mt.kf_t, kf_flat,
-        cur_pyr[:n_pyr_use], R_cur, t_cur, fx, fy, cx, cy,
-        cell_size=cell_size, max_out=max_pts_out, has_edgelets=has_edgelets,
-        pt_anchor_type=mt.pt_anchor_type, pt_anchor_dir=mt.pt_anchor_dir)
-    pt_f_cur = _unproject(pt_res.uv, fx, fy, cx, cy)
+    # ---- 2. reprojection + batched refinement (points, and with lines
+    # both segment endpoints in the same batch) ----
+    pt_args = (mt.pt_pos, mt.pt_status, mt.pt_anchor_kf, mt.pt_anchor_uv,
+               mt.pt_anchor_f, mt.pt_anchor_level, mt.pt_obs_kf,
+               mt.pt_obs_uv, mt.pt_obs_f, mt.pt_obs_level)
+    rkw = dict(has_edgelets=has_edgelets, pt_anchor_type=mt.pt_anchor_type,
+               pt_anchor_dir=mt.pt_anchor_dir)
     M = max_segs_out
-    z3 = torch.zeros((M, 3), device=dev)
-    seg_lm = torch.zeros(M, dtype=torch.long, device=dev)
-    seg_matched = torch.zeros(M, dtype=torch.bool, device=dev)
+    if has_ls:
+        pt_res, seg_res = reprojector.reproject_combined(
+            *pt_args, mt.ln_spos, mt.ln_epos, mt.ln_status, mt.ln_anchor_kf,
+            mt.ln_anchor_suv, mt.ln_anchor_euv, mt.ln_anchor_sf,
+            mt.ln_anchor_ef, mt.ln_anchor_level, mt.kf_R, mt.kf_t, kf_flat,
+            cur_pyr[:n_pyr_use], R_cur, t_cur, fx, fy, cx, cy,
+            cell_size=cell_size, cell_size_segs=cell_size_segs,
+            max_pts_out=max_pts_out, max_segs_out=max_segs_out, **rkw)
+        seg_line = pose_opt.line_coeffs_from_bearings(
+            _unproject(seg_res.s_uv, fx, fy, cx, cy),
+            _unproject(seg_res.e_uv, fx, fy, cx, cy))
+    else:
+        pt_res = reprojector.reproject_points(
+            *pt_args, mt.kf_R, mt.kf_t, kf_flat, cur_pyr[:n_pyr_use], R_cur,
+            t_cur, fx, fy, cx, cy, cell_size=cell_size, max_out=max_pts_out,
+            **rkw)
+        z2 = torch.zeros((M, 2), device=dev)
+        zi = torch.zeros(M, dtype=torch.int32, device=dev)
+        zb = torch.zeros(M, dtype=torch.bool, device=dev)
+        seg_res = reprojector.ReprojSegResult(
+            lm_idx=zi.long(), selected=zb, s_uv=z2, e_uv=z2, level=zi,
+            matched=zb, n_attempts=zi[0], n_matches=zi[0])
+        seg_line = torch.zeros((M, 3), device=dev)
+    pt_f_cur = _unproject(pt_res.uv, fx, fy, cx, cy)
+    seg_lm = seg_res.lm_idx
+    seg_matched = seg_res.matched
 
     # ---- 3. pose optimization on the matched features ----
     inp = pose_opt.PoseOptInputs(
         pt_f=pt_f_cur, pt_level=pt_res.level, pt_pos_w=mt.pt_pos[pt_res.lm_idx],
-        pt_valid=pt_res.matched, seg_line=z3,
-        seg_level=torch.zeros(M, dtype=torch.int32, device=dev),
-        seg_spos_w=z3, seg_epos_w=z3, seg_valid=seg_matched)
+        pt_valid=pt_res.matched, seg_line=seg_line, seg_level=seg_res.level,
+        seg_spos_w=mt.ln_spos[seg_lm], seg_epos_w=mt.ln_epos[seg_lm],
+        seg_valid=seg_matched)
     pres = pose_opt.optimize_pose(inp, R_cur, t_cur, fx, n_iter=poseopt_iters,
                                   n_iter_ref=poseopt_iters_ref,
                                   reproj_thresh=poseopt_thresh)
@@ -232,8 +259,8 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     return FusedResult(
         R_f_w=pres.R, t_f_w=pres.t, cov=pres.cov,
         align_seg_alive=ares.seg_alive, pt=pt_res, pt_inlier=pres.pt_inlier,
-        st_pt_lm=st_pt_lm, st_pt_pos=all_new[:Kp],
-        st_pt_valid=st_pt_valid & all_impr[:Kp],
+        seg=seg_res, seg_inlier=pres.seg_inlier, st_pt_lm=st_pt_lm,
+        st_pt_pos=all_new[:Kp], st_pt_valid=st_pt_valid & all_impr[:Kp],
         st_ln_lm=st_ln_lm, st_ln_spos=all_new[Kp:Kp + Kl],
         st_ln_epos=all_new[Kp + Kl:],
         st_ln_valid=st_ln_valid & all_impr[Kp:Kp + Kl] & all_impr[Kp + Kl:])
@@ -252,10 +279,11 @@ def apply_struct_to_mt(mt: MapTables, res: FusedResult) -> MapTables:
 
 def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                            R_last, t_last, pt_last_optim, ln_last_optim,
-                           mt: MapTables, pt_seeds, batch_counter: int,
+                           mt: MapTables, pt_seeds, ln_seeds, batch_counter: int,
                            fx, fy, cx, cy, *, update_pt_seeds: bool,
-                           max_seed_kfs: int, sigma_conv_factor: float,
-                           n_pyr_seed: int, pt_width=None,
+                           update_ln_seeds: bool = False, max_seed_kfs: int,
+                           sigma_conv_factor: float, n_pyr_seed: int,
+                           pt_width=None, ln_width=None,
                            seed_search_budget: int = 0, n_epi_steps: int = 64,
                            seed_work_budget: int = 0, **kw) -> FullStepResult:
     from plsvo_torch.ops import depth_filter as df
@@ -267,28 +295,41 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     t_w_kf = -torch.einsum("kji,kj->ki", mt.kf_R, mt.kf_t)
     R_w_cur = res.R_f_w.T
     t_w_cur = -res.R_f_w.T @ res.t_f_w
-    pt_conv = None
-    if update_pt_seeds:
-        Wp = pt_width or pt_seeds.mu.shape[0]
-        sub = df.PointSeeds(*[a[:Wp] for a in pt_seeds])
-        pres, _ = df.update_seeds_combined(
-            sub, None, R_w_kf, t_w_kf, kf_flat, cur_pyr[:n_pyr_seed], R_w_cur,
-            t_w_cur, fx, fy, cx, cy, batch_counter, has_pt=True, has_ln=False,
-            max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor,
-            max_search=seed_search_budget, n_epi_steps=n_epi_steps,
-            pt_work=seed_work_budget)
-        pt_seeds = df.PointSeeds(*[torch.cat([new, old[Wp:]])
-                                   for new, old in zip(pres.seeds, pt_seeds)])
-        cap = pt_seeds.mu.shape[0]
-        rows = nonzero_padded(pres.converged, CONV_BUDGET, cap)
-        pt_conv = (rows, gather_clamped(pres.depth_converged, rows),
-                   pres.converged.sum(), pt_seeds.alive, pres.skipped.sum())
-    return FullStepResult(fused=res, pt_seeds=pt_seeds, pt_conv=pt_conv,
+    pt_conv = ln_conv = None
+    if update_pt_seeds or update_ln_seeds:
+        # only the live prefix of each table is processed (free rows are
+        # allocated lowest-first); the tail is carried as it is
+        Wp = (pt_width or pt_seeds.mu.shape[0]) if update_pt_seeds else 0
+        Wl = (ln_width or ln_seeds.mu_s.shape[0]) if update_ln_seeds else 0
+        pres, lres = df.update_seeds_combined(
+            df.PointSeeds(*[a[:Wp] for a in pt_seeds]) if update_pt_seeds else None,
+            df.LineSeeds(*[a[:Wl] for a in ln_seeds]) if update_ln_seeds else None,
+            R_w_kf, t_w_kf, kf_flat, cur_pyr[:n_pyr_seed], R_w_cur, t_w_cur,
+            fx, fy, cx, cy, batch_counter, has_pt=update_pt_seeds,
+            has_ln=update_ln_seeds, max_seed_kfs=max_seed_kfs,
+            sigma_conv_factor=sigma_conv_factor, max_search=seed_search_budget,
+            n_epi_steps=n_epi_steps, pt_work=seed_work_budget)
+        if update_pt_seeds:
+            pt_seeds = df.PointSeeds(*[torch.cat([new, old[Wp:]])
+                                       for new, old in zip(pres.seeds, pt_seeds)])
+            rows = nonzero_padded(pres.converged, CONV_BUDGET, pt_seeds.mu.shape[0])
+            pt_conv = (rows, gather_clamped(pres.depth_converged, rows),
+                       pres.converged.sum(), pt_seeds.alive, pres.skipped.sum())
+        if update_ln_seeds:
+            ln_seeds = df.LineSeeds(*[torch.cat([new, old[Wl:]])
+                                      for new, old in zip(lres.seeds, ln_seeds)])
+            rows = nonzero_padded(lres.converged, CONV_BUDGET,
+                                  ln_seeds.mu_s.shape[0])
+            ln_conv = (rows, gather_clamped(lres.depth_s, rows),
+                       gather_clamped(lres.depth_e, rows), lres.converged.sum(),
+                       ln_seeds.alive, lres.skipped.sum())
+    return FullStepResult(fused=res, pt_seeds=pt_seeds, ln_seeds=ln_seeds,
+                          pt_conv=pt_conv, ln_conv=ln_conv,
                           mt=apply_struct_to_mt(mt, res))
 
 
 def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
-                     mt: MapTables, pt_seeds, batch_counter: int,
+                     mt: MapTables, pt_seeds, ln_seeds, batch_counter: int,
                      fx, fy, cx, cy, *, specs, **kw) -> FullStepResult:
     """The complete tracked-frame device step from one packed host blob
     (layout `last_blob_specs`)."""
@@ -299,7 +340,8 @@ def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
                            seg_sf, seg_ef, seg_sdepth, seg_edepth, seg_valid)
     return _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last, R_last,
                                   t_last, pt_last_optim, ln_last_optim, mt,
-                                  pt_seeds, batch_counter, fx, fy, cx, cy, **kw)
+                                  pt_seeds, ln_seeds, batch_counter, fx, fy,
+                                  cx, cy, **kw)
 
 
 def _leaves(tree):

@@ -1,9 +1,11 @@
 """Reprojector: map -> frame candidate selection + batched refinement.
 
-Port of the point path of `plsvo_tpu/pipeline/reprojector.py`: project all
-point landmarks, keep the best-quality landmark per grid cell, refine all
-winners in one `find_match_direct_atlas` batch, then retry the per-cell
-runner-ups where the winner failed.
+Port of `plsvo_tpu/pipeline/reprojector.py`: project all landmarks, keep
+the best-quality landmark per grid cell (a line by its midpoint's cell),
+refine all winners in one `find_match_direct_atlas` batch, then retry the
+per-cell runner-ups where the winner failed. `reproject_combined` refines
+points and both endpoints of every selected line in one batch (one K2
+launch), and its retry round in one more.
 """
 from __future__ import annotations
 
@@ -54,6 +56,17 @@ class ReprojResult(NamedTuple):
     uv: torch.Tensor  # (M,2)
     level: torch.Tensor  # (M,)
     matched: torch.Tensor  # (M,)
+    n_attempts: torch.Tensor
+    n_matches: torch.Tensor
+
+
+class ReprojSegResult(NamedTuple):
+    lm_idx: torch.Tensor  # (M,) line landmark rows
+    selected: torch.Tensor  # (M,)
+    s_uv: torch.Tensor  # (M,2)
+    e_uv: torch.Tensor
+    level: torch.Tensor  # (M,) the coarser of the two endpoint levels
+    matched: torch.Tensor  # (M,) both endpoints refined
     n_attempts: torch.Tensor
     n_matches: torch.Tensor
 
@@ -138,6 +151,11 @@ def _project_uv(pos, R_cur, t_cur, fx, fy, cx, cy):
                        -1), ok
 
 
+def _in_img(uv, W, H, margin):
+    return ((uv[:, 0] > margin) & (uv[:, 0] < W - margin)
+            & (uv[:, 1] > margin) & (uv[:, 1] < H - margin))
+
+
 def _select_points(pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv, pt_anchor_f,
                    pt_anchor_level, pt_obs_kf, pt_obs_uv, pt_obs_f,
                    pt_obs_level, kf_R, kf_t, img_shape, R_cur, t_cur, fx, fy,
@@ -147,11 +165,8 @@ def _select_points(pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv, pt_anchor_f,
     H, W = img_shape
     nx, ny, n_cells = grid_cells(W, H, cell_size)
     uv, z_ok = _project_uv(pt_pos, R_cur, t_cur, fx, fy, cx, cy)
-    margin = patch_size
-    in_img = ((uv[:, 0] > margin) & (uv[:, 0] < W - margin)
-              & (uv[:, 1] > margin) & (uv[:, 1] < H - margin))
     status = pt_status.long()
-    active = (status > 0) & z_ok & in_img
+    active = (status > 0) & z_ok & _in_img(uv, W, H, patch_size)
     cell = ((uv[:, 1] / cell_size).to(torch.int64).clamp(0, ny - 1) * nx
             + (uv[:, 0] / cell_size).to(torch.int64).clamp(0, nx - 1))
     ar = torch.arange(P, device=pt_pos.device)
@@ -167,6 +182,67 @@ def _select_points(pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv, pt_anchor_f,
                       second_row=_runner_up_by_cell(key, is_winner, active,
                                                     cell, n_cells, P))
     return lm, sel, ri, retry
+
+
+def _select_segments(ln_spos, ln_epos, ln_status, ln_anchor_kf, ln_anchor_suv,
+                     ln_anchor_euv, ln_anchor_sf, ln_anchor_ef,
+                     ln_anchor_level, kf_R, kf_t, img_shape, R_cur, t_cur, fx,
+                     fy, cx, cy, *, cell_size, max_out, patch_size):
+    """Line landmarks: per-cell dedup on the midpoint's cell; refine inputs
+    for both endpoints. Returns (lm, sel, ri_start, ri_end, retry)."""
+    L = ln_spos.shape[0]
+    H, W = img_shape
+    nx, ny, n_cells = grid_cells(W, H, cell_size)
+    suv, s_ok = _project_uv(ln_spos, R_cur, t_cur, fx, fy, cx, cy)
+    euv, e_ok = _project_uv(ln_epos, R_cur, t_cur, fx, fy, cx, cy)
+    status = ln_status.long()
+    active = ((status > 0) & s_ok & e_ok & _in_img(suv, W, H, patch_size)
+              & _in_img(euv, W, H, patch_size))
+    mid = 0.5 * (suv + euv)
+    cell = ((mid[:, 1] / cell_size).to(torch.int64).clamp(0, ny - 1) * nx
+            + (mid[:, 0] / cell_size).to(torch.int64).clamp(0, nx - 1))
+    ar = torch.arange(L, device=ln_spos.device)
+    key = torch.where(active, status * (L + 1) + (L - ar), torch.zeros_like(ar))
+    cell_best = segment_max(key, cell, n_cells)
+    is_winner = active & (key == cell_best[cell]) & (key > 0)
+    lm, sel = masked_compact(is_winner, max_out)
+    ri_s, ri_e = _segment_anchor_inputs(
+        lm, sel, suv[lm], euv[lm], ln_spos, ln_epos, ln_anchor_kf,
+        ln_anchor_suv, ln_anchor_euv, ln_anchor_sf, ln_anchor_ef,
+        ln_anchor_level, kf_R, kf_t, R_cur, t_cur)
+    retry = RetryInfo(cell_of_row=cell[lm],
+                      second_row=_runner_up_by_cell(key, is_winner, active,
+                                                    cell, n_cells, L))
+    return lm, sel, ri_s, ri_e, retry
+
+
+def _segment_anchor_inputs(lm, valid, suv_init, euv_init, ln_spos, ln_epos,
+                           ln_anchor_kf, ln_anchor_suv, ln_anchor_euv,
+                           ln_anchor_sf, ln_anchor_ef, ln_anchor_level,
+                           kf_R, kf_t, R_cur, t_cur):
+    """Refine inputs for both endpoints of a set of line-landmark rows:
+    2-D rows (corner type, zero gradient direction) warped from the line's
+    anchor keyframe."""
+    akf = ln_anchor_kf[lm].long()
+    akf_c = akf.clamp_min(0)
+    R_ca, t_ca, anchor_center = _rel_pose_to_anchor(kf_R, kf_t, akf_c,
+                                                    R_cur, t_cur)
+    s_depth = torch.linalg.norm(ln_spos[lm] - anchor_center, dim=-1)
+    e_depth = torch.linalg.norm(ln_epos[lm] - anchor_center, dim=-1)
+    valid0 = valid & (akf >= 0)
+    lvl = ln_anchor_level[lm].long()
+    M = lm.shape[0]
+    zt = torch.zeros(M, dtype=torch.int32, device=lm.device)
+    zd = torch.zeros((M, 2), device=lm.device)
+    ri_s = RefineInputs(kf_idx=akf_c, uv_ref=ln_anchor_suv[lm],
+                        f_ref=ln_anchor_sf[lm], depth_ref=s_depth,
+                        level_ref=lvl, R_ca=R_ca, t_ca=t_ca, uv_init=suv_init,
+                        valid=valid0, ftype=zt, grad_dir=zd)
+    ri_e = RefineInputs(kf_idx=akf_c, uv_ref=ln_anchor_euv[lm],
+                        f_ref=ln_anchor_ef[lm], depth_ref=e_depth,
+                        level_ref=lvl, R_ca=R_ca, t_ca=t_ca, uv_init=euv_init,
+                        valid=valid0, ftype=zt, grad_dir=zd)
+    return ri_s, ri_e
 
 
 def _retry_rows(retry: RetryInfo, failed, max_retry: int):
@@ -220,3 +296,78 @@ def reproject_points(pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv,
                         matched=matched,
                         n_attempts=sel.sum().to(torch.int32),
                         n_matches=matched.sum().to(torch.int32))
+
+
+def _cat(*xs):
+    return type(xs[0])(*[torch.cat(cols) for cols in zip(*xs)])
+
+
+def _rows(t, lo, hi):
+    return type(t)(*[a[lo:hi] for a in t])
+
+
+def reproject_combined(pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv,
+                       pt_anchor_f, pt_anchor_level, pt_obs_kf, pt_obs_uv,
+                       pt_obs_f, pt_obs_level, ln_spos, ln_epos, ln_status,
+                       ln_anchor_kf, ln_anchor_suv, ln_anchor_euv,
+                       ln_anchor_sf, ln_anchor_ef, ln_anchor_level, kf_R, kf_t,
+                       kf_flat, cur_pyr, R_cur, t_cur, fx, fy, cx, cy, *,
+                       cell_size: int = 25, cell_size_segs: int = 25,
+                       max_pts_out: int = 192, max_segs_out: int = 96,
+                       patch_size: int = 8, has_edgelets: bool = False,
+                       pt_anchor_type=None, pt_anchor_dir=None):
+    """Points + both segment endpoints refined in ONE batch of
+    max_pts_out + 2 * max_segs_out rows; one more batch of an eighth of
+    each width refines the per-cell runner-ups where the first candidate
+    failed, appended as extra result rows.
+    Returns (ReprojResult, ReprojSegResult)."""
+    img_shape = tuple(cur_pyr[0].shape)
+    pt_tabs = (pt_pos, pt_obs_kf, pt_obs_uv, pt_obs_f, pt_obs_level,
+               pt_anchor_kf, pt_anchor_uv, pt_anchor_f, pt_anchor_level)
+    lt = (ln_spos, ln_epos)
+    at = (ln_anchor_kf, ln_anchor_suv, ln_anchor_euv, ln_anchor_sf,
+          ln_anchor_ef, ln_anchor_level)
+    lm_p, sel_p, ri_p, rinfo_p = _select_points(
+        pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv, pt_anchor_f,
+        pt_anchor_level, pt_obs_kf, pt_obs_uv, pt_obs_f, pt_obs_level,
+        kf_R, kf_t, img_shape, R_cur, t_cur, fx, fy, cx, cy,
+        cell_size=cell_size, max_out=max_pts_out, patch_size=patch_size,
+        pt_anchor_type=pt_anchor_type, pt_anchor_dir=pt_anchor_dir)
+    lm_s, sel_s, ri_s, ri_e, rinfo_s = _select_segments(
+        *lt, ln_status, *at, kf_R, kf_t, img_shape, R_cur, t_cur, fx, fy, cx,
+        cy, cell_size=cell_size_segs, max_out=max_segs_out,
+        patch_size=patch_size)
+    res = _refine(kf_flat, cur_pyr, _cat(ri_p, ri_s, ri_e), fx, fy, cx, cy,
+                  patch_size=patch_size, has_edgelets=has_edgelets)
+    M, G = max_pts_out, max_segs_out
+    r_p, r_s, r_e = (_rows(res, 0, M), _rows(res, M, M + G),
+                     _rows(res, M + G, M + 2 * G))
+    Mr = max(max_pts_out // 8, 8)
+    Gr = max(max_segs_out // 8, 8)
+    lm_p2, sel_p2 = _retry_rows(rinfo_p, sel_p & ~r_p.ok, Mr)
+    uv_p2, _ = _project_uv(pt_pos[lm_p2], R_cur, t_cur, fx, fy, cx, cy)
+    ri_p2 = _point_anchor_inputs(
+        lm_p2, sel_p2, uv_p2, *pt_tabs, kf_R, kf_t, R_cur, t_cur,
+        pt_anchor_type, pt_anchor_dir)
+    lm_s2, sel_s2 = _retry_rows(rinfo_s, sel_s & ~(r_s.ok & r_e.ok), Gr)
+    suv2, _ = _project_uv(ln_spos[lm_s2], R_cur, t_cur, fx, fy, cx, cy)
+    euv2, _ = _project_uv(ln_epos[lm_s2], R_cur, t_cur, fx, fy, cx, cy)
+    ri_s2, ri_e2 = _segment_anchor_inputs(
+        lm_s2, sel_s2, suv2, euv2, *lt, *at, kf_R, kf_t, R_cur, t_cur)
+    res2 = _refine(kf_flat, cur_pyr, _cat(ri_p2, ri_s2, ri_e2), fx, fy,
+                   cx, cy, patch_size=patch_size, has_edgelets=has_edgelets)
+    r_p = _cat(r_p, _rows(res2, 0, Mr))
+    r_s = _cat(r_s, _rows(res2, Mr, Mr + Gr))
+    r_e = _cat(r_e, _rows(res2, Mr + Gr, Mr + 2 * Gr))
+    lm_p, sel_p = torch.cat([lm_p, lm_p2]), torch.cat([sel_p, sel_p2])
+    lm_s, sel_s = torch.cat([lm_s, lm_s2]), torch.cat([sel_s, sel_s2])
+    matched = r_p.ok & sel_p
+    both = r_s.ok & r_e.ok & sel_s
+    return (ReprojResult(lm_idx=lm_p, selected=sel_p, uv=r_p.uv,
+                         level=r_p.level, matched=matched,
+                         n_attempts=sel_p.sum().to(torch.int32),
+                         n_matches=matched.sum().to(torch.int32)),
+            ReprojSegResult(lm_idx=lm_s, selected=sel_s, s_uv=r_s.uv,
+                            e_uv=r_e.uv, level=torch.maximum(r_s.level, r_e.level),
+                            matched=both, n_attempts=sel_s.sum().to(torch.int32),
+                            n_matches=both.sum().to(torch.int32)))

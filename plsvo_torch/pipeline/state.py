@@ -3,9 +3,8 @@
 Port of `plsvo_tpu/pipeline/state.py` for the sync path. Bookkeeping lives
 on the host in numpy (copied from the JAX package so the host decisions
 match, float64 intermediates included); pyramids and the cached device
-copies of the tables are torch tensors on the handler's device. The line
-tables keep their capacities (the fused step carries them) but stay empty
-in this port. The pipelined-mode delta queues are not ported.
+copies of the tables are torch tensors on the handler's device. The
+pipelined-mode delta queues are not ported.
 
 Landmark status: 0 = DELETED, 1 = CANDIDATE, 2 = UNKNOWN, 3 = GOOD
 """
@@ -331,8 +330,23 @@ class MapState:
             self.pt_anchor_f[lm] = frame.pt_f[sel]
             self.pt_anchor_level[lm] = frame.pt_level[sel]
             self._obs_dirty["pt"].update(lm.tolist())
-        if (frame.seg_valid & (frame.seg_lm >= 0)).any():
-            raise NotImplementedError("line landmarks (has_ls=True) are not ported")
+        sel = np.where(frame.seg_valid & (frame.seg_lm >= 0))[0]
+        if len(sel):
+            lm, first = np.unique(frame.seg_lm[sel], return_index=True)
+            sel = sel[first]
+            slots = self._obs_slots_vec(self.ln_obs_kf[lm], self.ln_obs_stamp[lm])
+            self.ln_obs_kf[lm, slots] = slot
+            self.ln_obs_sf[lm, slots] = frame.seg_sf[sel]
+            self.ln_obs_ef[lm, slots] = frame.seg_ef[sel]
+            self.ln_obs_stamp[lm, slots] = self.ln_obs_ptr[lm]
+            self.ln_obs_ptr[lm] += 1
+            self.ln_anchor_kf[lm] = slot
+            self.ln_anchor_suv[lm] = frame.seg_suv[sel]
+            self.ln_anchor_euv[lm] = frame.seg_euv[sel]
+            self.ln_anchor_sf[lm] = frame.seg_sf[sel]
+            self.ln_anchor_ef[lm] = frame.seg_ef[sel]
+            self.ln_anchor_level[lm] = frame.seg_level[sel]
+            self._obs_dirty["ln"].update(lm.tolist())
         self._set_key_landmarks(slot, frame)
         return slot
 
@@ -373,8 +387,38 @@ class MapState:
             self.pt_anchor_uv[r] = self.pt_obs_uv[r, o]
             self.pt_anchor_f[r] = self.pt_obs_f[r, o]
             self.pt_anchor_level[r] = self.pt_obs_level[r, o]
+        # lines: the obs store bearings only; the anchor uvs are the
+        # endpoints projected into the new anchor keyframe
+        lobserved = (self.ln_obs_kf == slot).any(axis=1)
+        ln_obs = (self.ln_obs_kf >= 0).sum(axis=1)
+        llive = self.ln_status > 0
+        ldead = llive & lobserved & (ln_obs <= 2)
+        self.ln_status[ldead] = ST_DELETED
+        self.ln_obs_stamp[self.ln_obs_kf == slot] = -1
+        self.ln_obs_kf[self.ln_obs_kf == slot] = -1
+        lneed = llive & ~ldead & (self.ln_anchor_kf == slot)
+        fx, fy, cx, cy = self.intrinsics
+        for r in np.where(lneed)[0]:
+            oks = np.where((self.ln_obs_kf[r] >= 0)
+                           & self.kf_occupied[np.maximum(self.ln_obs_kf[r], 0)])[0]
+            if len(oks) == 0:
+                self.ln_status[r] = ST_DELETED
+                ldead[r] = True
+                continue
+            o = oks[np.argmax(self.ln_obs_stamp[r, oks])]
+            k = self.ln_obs_kf[r, o]
+            self.ln_anchor_kf[r] = k
+            self.ln_anchor_sf[r] = self.ln_obs_sf[r, o]
+            self.ln_anchor_ef[r] = self.ln_obs_ef[r, o]
+            for pos, tgt in ((self.ln_spos[r], self.ln_anchor_suv),
+                             (self.ln_epos[r], self.ln_anchor_euv)):
+                xyz = self.kf_R[k] @ pos + self.kf_t[k]
+                z = max(float(xyz[2]), 1e-6)
+                tgt[r] = (fx * xyz[0] / z + cx, fy * xyz[1] / z + cy)
         if dead.any():
             self.kf_pt_lm[np.isin(self.kf_pt_lm, np.where(dead)[0])] = -1
+        if ldead.any():
+            self.kf_seg_lm[np.isin(self.kf_seg_lm, np.where(ldead)[0])] = -1
 
     @staticmethod
     def _obs_slot(obs_kf_row, stamp_row):
@@ -394,8 +438,20 @@ class MapState:
         self.pt_obs_ptr[lm] += 1
         self._obs_dirty["pt"].add(int(lm))
 
+    def _add_ln_obs(self, lm: int, kf_slot: int, sf, ef):
+        p = self._obs_slot(self.ln_obs_kf[lm], self.ln_obs_stamp[lm])
+        self.ln_obs_kf[lm, p] = kf_slot
+        self.ln_obs_sf[lm, p] = sf
+        self.ln_obs_ef[lm, p] = ef
+        self.ln_obs_stamp[lm, p] = self.ln_obs_ptr[lm]
+        self.ln_obs_ptr[lm] += 1
+        self._obs_dirty["ln"].add(int(lm))
+
     def alloc_points(self, n: int) -> np.ndarray:
         return np.where(self.pt_status == ST_DELETED)[0][:n]
+
+    def alloc_lines(self, n: int) -> np.ndarray:
+        return np.where(self.ln_status == ST_DELETED)[0][:n]
 
     def new_point(self, pos_w, kf_slot, uv, f, level, status=ST_UNKNOWN,
                   ftype: int = 0, grad_dir=None) -> int:
@@ -424,14 +480,48 @@ class MapState:
                         "pt_anchor_dir")
         return r
 
+    def new_line(self, spos_w, epos_w, kf_slot, suv, euv, sf, ef, level,
+                 status=ST_UNKNOWN) -> int:
+        rows = self.alloc_lines(1)
+        if len(rows) == 0:
+            return -1
+        r = int(rows[0])
+        self.ln_spos[r] = spos_w
+        self.ln_epos[r] = epos_w
+        self.ln_status[r] = status
+        self.ln_n_succ[r] = 0
+        self.ln_n_fail[r] = 0
+        self.ln_last_optim[r] = -1
+        self.ln_anchor_kf[r] = kf_slot
+        self.ln_anchor_suv[r] = suv
+        self.ln_anchor_euv[r] = euv
+        self.ln_anchor_sf[r] = sf
+        self.ln_anchor_ef[r] = ef
+        self.ln_anchor_level[r] = level
+        self.ln_obs_kf[r] = -1
+        self.ln_obs_stamp[r] = -1
+        self.ln_obs_ptr[r] = 0
+        self._obs_dirty["ln"].add(r)
+        self._add_ln_obs(r, kf_slot, sf, ef)
+        self.invalidate("ln_spos", "ln_epos", "ln_status", "ln_anchor_kf",
+                        "ln_anchor_suv", "ln_anchor_euv", "ln_anchor_sf",
+                        "ln_anchor_ef", "ln_anchor_level")
+        return r
+
     def scene_depth(self, frame: FrameState):
-        """Median + min depth of the frame's landmark observations."""
+        """Median + min depth of the frame's landmark observations (points
+        and both endpoints of each line)."""
         Rz, tz = frame.R_f_w[2], frame.t_f_w[2]
         parts = []
         pv = frame.pt_valid & (frame.pt_lm >= 0)
         if pv.any():
             z = self.pt_pos[frame.pt_lm[pv]] @ Rz + tz
             parts.append(z[z > 0])
+        sv = frame.seg_valid & (frame.seg_lm >= 0)
+        if sv.any():
+            for tbl in (self.ln_spos, self.ln_epos):
+                z = tbl[frame.seg_lm[sv]] @ Rz + tz
+                parts.append(z[z > 0])
         d = np.concatenate(parts) if parts else np.zeros(0)
         if len(d) == 0:
             return None, None

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from plsvo_torch import _build
-from plsvo_torch.config import fast_config
+from plsvo_torch.config import default_config, fast_config
 from plsvo_torch.camera import PinholeCamera
 from plsvo_torch.ops import detection, fast_score, mixed_align
 from plsvo_torch.pipeline import frame_handler
@@ -20,6 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 _ONE_STEP = r"""
 import dataclasses, pkgutil, importlib, sys
 import numpy as np
+import torch
+torch.set_num_threads(1)  # as the parallel test workers run the port
 import plsvo_torch
 for m in pkgutil.walk_packages(plsvo_torch.__path__, "plsvo_torch."):
     importlib.import_module(m.name)
@@ -31,9 +33,10 @@ cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
 scene = synthetic.make_scene(np.random.default_rng(7), size=1024,
                              texel_size=0.004)
 cfg = fast_config()
-cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+points = dataclasses.replace(cfg, pipeline=dataclasses.replace(
     cfg.pipeline, has_ls=False, init_ls=False, loba_enabled=False))
-vo = FrameHandlerMono(cam, cfg, device="cpu")
+lines = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+    cfg.pipeline, loba_enabled=False))
 # frame 6 of the golden sequence of tests/test_pipeline.py: enough corners
 # for the first keyframe
 ang = 0.018
@@ -41,8 +44,13 @@ R = np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
                 [-np.sin(ang), 0, np.cos(ang)]], np.float32)
 img = synthetic.render_aa(scene, cam, R, np.asarray([0.132, 0.006 * np.sin(1.8), -2.0]),
                           device="cpu")
-r = vo.add_image(img, 0.0)
-assert (r.stage, r.quality) == ("first", "good") and r.n_pt_matches > 0, r
+n = []
+for c in (points, lines):
+    r = FrameHandlerMono(cam, c, device="cpu").add_image(img, 0.0)
+    assert (r.stage, r.quality) == ("first", "good") and r.n_pt_matches > 0, r
+    n.append(r.n_pt_matches)
+# the lines config adds KLT targets along the detected segments
+assert n[1] > n[0], n
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "plsvo_tpu"))
 print("BAD", bad)
@@ -95,19 +103,21 @@ def _helper_call(name):
         "homography_init": lambda: homography.homography_init(
             f, f, np.ones(8, bool), focal=50.0),
         "empty_point_seeds": lambda: depth_filter.empty_point_seeds(8),
+        "empty_line_seeds": lambda: depth_filter.empty_line_seeds(8),
         "frame_state_from_numpy": lambda: convert.frame_state_from_numpy(
             {"pyr": [np.zeros((48, 64), np.float32)]}),
         "map_state_from_numpy": lambda: convert.map_state_from_numpy(
             {}, fast_config(), 3, (48, 64), (50.0, 50.0, 32.0, 24.0)),
         "point_seeds_from_numpy": lambda: convert.point_seeds_from_numpy({}),
+        "line_seeds_from_numpy": lambda: convert.line_seeds_from_numpy({}),
         "MapState": lambda: MapState(fast_config(), 3, (48, 64)),
     }[name]
 
 
 @pytest.mark.parametrize("name", [
     "render_aa", "render_batch_aa", "homography_init", "empty_point_seeds",
-    "frame_state_from_numpy", "map_state_from_numpy",
-    "point_seeds_from_numpy", "MapState"])
+    "empty_line_seeds", "frame_state_from_numpy", "map_state_from_numpy",
+    "point_seeds_from_numpy", "line_seeds_from_numpy", "MapState"])
 def test_helpers_default_to_cuda(monkeypatch, name):
     """Every public helper that creates tensors runs on the card unless the
     caller names a device: with no card and no device it raises."""
@@ -117,20 +127,38 @@ def test_helpers_default_to_cuda(monkeypatch, name):
         call()
 
 
-@pytest.mark.parametrize("field", ["has_ls", "init_ls", "loba_enabled",
-                                   "pipelined"])
-def test_unported_config_raises(field):
+def _slice_config(make, **override):
     import dataclasses
 
-    cfg = fast_config()
-    slice_pl = dict(has_ls=False, init_ls=False, loba_enabled=False,
-                    pipelined=False)
-    slice_pl[field] = True
-    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, **slice_pl))
+    cfg = make()
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, **dict(dict(loba_enabled=False, pipelined=False),
+                             **override)))
+
+
+@pytest.mark.parametrize("field,value", [
+    pytest.param("loba_enabled", True, id="loba_enabled"),
+    pytest.param("pipelined", True, id="pipelined"),
+    pytest.param("has_pt", False, id="has_pt"),
+    pytest.param("use_edgelets", False, id="use_edgelets"),
+    pytest.param("has_refinement", True, id="has_refinement")])
+def test_unported_config_raises(field, value):
+    cfg = _slice_config(fast_config, **{field: value})
     cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
     with pytest.raises(NotImplementedError, match=field):
         frame_handler.FrameHandlerMono(cam, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("make", [fast_config, default_config],
+                         ids=["fast_config", "default_config"])
+def test_lines_config_constructs_on_cpu(make):
+    """Points + lines (has_ls, init_ls: the configs' defaults) in the sync
+    path without local BA is the ported slice."""
+    cfg = _slice_config(make)
+    assert cfg.pipeline.has_ls and cfg.pipeline.init_ls
+    cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
+    vo = frame_handler.FrameHandlerMono(cam, cfg, device="cpu")
+    assert vo.ln_seeds.mu_s.shape == (cfg.caps.max_seed_segs,)
 
 
 def test_non_cpu_tensor_never_falls_back(monkeypatch):

@@ -16,6 +16,7 @@ from plsvo_torch.camera import PinholeCamera
 from plsvo_torch.config import fast_config
 from plsvo_torch.ops import fast_score as tfs
 from plsvo_torch.ops import feature_align as tfa
+from plsvo_torch.ops import lines as tl
 from plsvo_torch.ops import mixed_align as tma
 from plsvo_torch.pipeline import frame_handler as tfh
 from plsvo_torch.utils import synthetic, trajectory
@@ -97,11 +98,24 @@ def test_fast_score_levels_kernel_matches_plain(cuda, gen, which):
         assert rel < 1e-3
 
 
+# corners and edge points of the two bright bars of the "lines" problem
+_BAR_POINTS = np.asarray([[20, 30], [140, 30], [20, 50], [140, 50], [70, 60],
+                          [90, 60], [70, 110], [90, 110], [50, 30], [110, 50],
+                          [70, 85], [90, 85]], np.float32)
+
+
 def _mixed_problem(gen, device, N=256, H=120, W=160, mode="mixed"):
     """The inputs of tests/test_pallas_align.py, built with the port; mode
     picks the 1-D rows (none, all, or ~30%). A few rows start outside their
-    window and ~10% are invalid."""
+    window and ~10% are invalid. Mode "lines" is a reprojection batch of the
+    lines path: the first half mixed point rows, the second half segment
+    endpoints (2-D rows, zero direction) on the corners and edges of two
+    bright bars."""
     img = np.clip(gen.normal(128, 40, (H, W)), 0, 255).astype(np.float32)
+    if mode == "lines":
+        img = 0.5 * img
+        img[30:50, 20:140] += 150.0
+        img[60:110, 70:90] += 150.0
     p = np.pad(img, 1)
     img = sum(p[i:i + H, j:j + W] for i in range(3) for j in range(3)) / 9.0
     img = torch.as_tensor(img.astype(np.float32), device=device)
@@ -109,6 +123,10 @@ def _mixed_problem(gen, device, N=256, H=120, W=160, mode="mixed"):
     B = 10
     uv_true = np.stack([gen.uniform(12, W - 12, N),
                         gen.uniform(12, H - 12, N)], -1).astype(np.float32)
+    n_end = N - N // 2 if mode == "lines" else 0
+    if n_end:
+        uv_true[N // 2:] = (_BAR_POINTS[np.arange(n_end) % len(_BAR_POINTS)]
+                            + gen.uniform(-1, 1, (n_end, 2)))
     yy, xx = np.meshgrid(np.arange(B) - B / 2 + 0.5, np.arange(B) - B / 2 + 0.5,
                          indexing="ij")
     pos = uv_true[:, None, :] + np.stack([xx.ravel(), yy.ravel()], -1)[None]
@@ -120,7 +138,11 @@ def _mixed_problem(gen, device, N=256, H=120, W=160, mode="mixed"):
     d = gen.normal(size=(N, 2)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     is_1d = {"2d": np.zeros(N, bool), "1d": np.ones(N, bool),
-             "mixed": gen.random(N) < 0.3}[mode]
+             "mixed": gen.random(N) < 0.3,
+             "lines": gen.random(N) < 0.3}[mode]
+    if n_end:
+        is_1d[N // 2:] = False
+        d[N // 2:] = 0.0
     T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return (atlas, x_off, sizes, ref, dx, dy, T(uv0), T(d), T(is_1d),
             torch.zeros(N, dtype=torch.long, device=device),
@@ -153,19 +175,54 @@ def test_mixed_align_kernel_matches_plain(cuda, gen, N, mode):
 
 
 @pytest.mark.cuda
-def test_slice_tracks_on_the_card(cuda):
-    """The points-only sync slice on the card, on the golden 320x240
-    sequence of tests/test_pipeline.py rendered by the port: the same
-    bounds as the CPU run of tests/test_torch_pipeline.py."""
+@pytest.mark.parametrize("N", [48, 384])
+def test_mixed_align_kernel_with_segment_endpoint_rows(cuda, gen, N):
+    """K2 at the lines path's reprojection shapes (N=384: 192 points + 2 x
+    96 endpoints; its retry batch N=48), half the rows segment endpoints:
+    the parity bar of ROADMAP B2."""
+    args = _mixed_problem(gen, cuda, N=N, mode="lines")
+    captured = []
+    tma.capture = lambda a, k: captured.append((a, k))
+    try:
+        before = tma.launches
+        out = tfa.align_mixed_atlas(*args, patch_size=8, n_iter=10)
+    finally:
+        tma.capture = None
+    assert tma.launches == before + 1
+    kargs, kw = captured[0]
+    uv_p, c_p, md_p = tma.mixed_align_plain(*kargs, **kw)
+    assert torch.equal(out.converged, c_p)
+    assert int(c_p[N // 2:].sum()) >= N // 8
+    assert float((out.uv - uv_p)[c_p].abs().max()) < 2e-3
+    assert float((out.mean_diff - md_p)[c_p].abs().max()) < 2e-2
+
+
+@pytest.mark.cuda
+def test_detect_segments_card_matches_cpu(cuda):
+    """The keyframe line detector on the card against the same code on the
+    CPU (scatter-add votes, stable sorts) on frame 0 of the bench scene."""
+    img = _bench_frame(cuda)
+    kw = dict(n_peaks=64, run_gap_px=3.0, dist_tol=1.2)
+    k = tl.detect_segments_tiled(img, **kw)
+    p = tl.detect_segments_tiled(img.cpu(), **kw)
+    v = p.valid
+    assert torch.equal(k.valid.cpu(), v) and int(v.sum()) >= 50
+    assert torch.equal(k.response.cpu(), p.response)
+    for name in ("sp", "ep"):
+        assert float((getattr(k, name).cpu() - getattr(p, name))[v].abs().max()) < 1e-2
+
+
+def _golden_run(device, lines):
+    """The golden 320x240 sequence of tests/test_pipeline.py rendered by the
+    port, through the slice config."""
     cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
     scene = synthetic.make_scene(np.random.default_rng(7), size=1024,
                                  texel_size=0.004)
     cfg = fast_config()
     cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, has_ls=False, init_ls=False, loba_enabled=False,
+        cfg.pipeline, has_ls=lines, init_ls=lines, loba_enabled=False,
         pipelined=False))
-    vo = tfh.FrameHandlerMono(cam, cfg, device=cuda)
-    k1, k2 = tfs.launches, tma.launches
+    vo = tfh.FrameHandlerMono(cam, cfg, device=device)
     res, gt = [], []
     for i in range(28):
         ang = 0.003 * i
@@ -173,13 +230,32 @@ def test_slice_tracks_on_the_card(cuda):
                         [-np.sin(ang), 0, np.cos(ang)]], np.float32)
         t = np.asarray([0.022 * i, 0.006 * np.sin(0.3 * i), -2.0], np.float32)
         res.append(vo.add_image(synthetic.render_aa(scene, cam, R, t,
-                                                    device=cuda), i / 30.0))
+                                                    device=device), i / 30.0))
         gt.append(t)
-    assert tfs.launches > k1 and tma.launches > k2
     stages = [r.stage for r in res]
     fd = stages.index(tfh.STAGE_DEFAULT)
     assert all(s == tfh.STAGE_DEFAULT for s in stages[fd:]), stages
     est = np.stack([-r.R_f_w.T @ r.t_f_w for r in res[fd:]]).astype(np.float64)
-    ate = trajectory.ate_rmse(est, np.stack(gt[fd:]).astype(np.float64),
-                              with_scale=True)
+    return vo, res, trajectory.ate_rmse(
+        est, np.stack(gt[fd:]).astype(np.float64), with_scale=True)
+
+
+@pytest.mark.cuda
+def test_slice_tracks_on_the_card(cuda):
+    """The points-only sync slice on the card: the bound of the CPU run of
+    tests/test_torch_pipeline.py."""
+    k1, k2 = tfs.launches, tma.launches
+    _, _, ate = _golden_run(cuda, lines=False)
+    assert tfs.launches > k1 and tma.launches > k2
     assert ate < 0.002, ate
+
+
+@pytest.mark.cuda
+def test_lines_slice_tracks_on_the_card(cuda):
+    """Points + lines on the card: the golden bound of the CPU run of
+    tests/test_torch_pipeline_lines.py, and line landmarks made."""
+    vo, res, ate = _golden_run(cuda, lines=True)
+    assert ate < 0.006, ate
+    assert (vo._lnseed_install_frame >= 0).any()
+    assert int((vo.map.ln_status > 0).sum()) > 0
+    assert max(r.n_seg_matches for r in res) > 0

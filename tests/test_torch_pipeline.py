@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from plsvo_torch import convert
 from plsvo_torch.camera import PinholeCamera as TCam
@@ -23,6 +24,10 @@ from plsvo_tpu.pipeline.state import map_statistics as jmap_statistics
 from plsvo_tpu.utils import synthetic, trajectory
 
 CAM = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
+
+# The port's CPU ops here are small: one intra-op thread per test process
+# keeps parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
 
 
 def jax_ransac_draws(n_valid, n_hyp):
