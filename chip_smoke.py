@@ -72,6 +72,10 @@ K2_OPS_PER_ROW_ITER = 64 * 18 + 30
 # in frames where both endpoints match; at the bench's speed keyframes
 # come every few frames and line seeds rarely converge before they age
 # out. At half the speed line landmarks form within the 40 frames.
+# tests/lines_at_bench_speed.py runs both packages on the CPU at either
+# speed: at 0.03 m they make the same single line landmark and the same
+# per-frame segment matches (median 0 after it), so the gates below could
+# not tell a working port from a broken one there.
 RUN_STEP = 0.015
 
 
@@ -460,13 +464,19 @@ def k2_active_row_iters(args, kw):
     return total
 
 
-def k2_bound_ms(n, row_iters):
-    """(bound in ms, what bounds it) of a K2 launch of n rows whose data
-    needs row_iters active row-iterations. Bytes per row: the 16x16 window,
-    four 64-tap vectors, H^-1 and the small per-row terms, read once; uv,
-    mean_diff and the verdict written once."""
-    n_bytes = n * (256 * 4 + 4 * 64 * 4 + (9 + 4 + 2 + 2 + 2 + 2) * 4
-                   + 2 + 2 * 4 + 1 + 4)
+def k2_bound_ms(args, row_iters):
+    """(bound in ms, what bounds it) of a K2 launch on args whose data needs
+    row_iters active row-iterations. A valid row reads the 16x16 window,
+    four 64-tap vectors, H^-1 and the small per-row terms once; an invalid
+    row needs only its flag and uv0 (it returns uv0, not converged, mean
+    difference 0). Every row writes uv, mean_diff and the verdict once."""
+    n = args[0].shape[0]
+    n_valid = int(args[12].sum())
+    out_bytes = 2 * 4 + 4 + 1
+    valid_bytes = (256 * 4 + 4 * 64 * 4 + (9 + 4 + 2 + 2 + 2 + 2) * 4 + 2
+                   + out_bytes)
+    invalid_bytes = 1 + 2 * 4 + out_bytes
+    n_bytes = n_valid * valid_bytes + (n - n_valid) * invalid_bytes
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = row_iters * K2_OPS_PER_ROW_ITER / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -717,7 +727,7 @@ def main():
     k2_plain = cuda_time_ms(lambda: ma.mixed_align_plain(*args, **kw), reps=10,
                             inner=5)
     row_iters = k2_active_row_iters(args, kw)
-    k2_bound, k2_by = k2_bound_ms(n_k2, row_iters)
+    k2_bound, k2_by = k2_bound_ms(args, row_iters)
     print(f"timing: K1 three-level launch {levels} ({px} px) kernel "
           f"{k1_ms:.4f} ms per call (device {k1_dev:.4f} ms), plain "
           f"{k1_plain:.4f} ms, bound {k1_bound:.5f} ms ({k1_by}; the kernel "
@@ -741,17 +751,20 @@ def main():
             groups.setdefault((c[2], c[0][0].shape[0]), []).append(c)
         for (where, n), runs in sorted(groups.items()):
             # the launch of the group with the most valid rows
-            a, k, _ = max(runs, key=lambda c: int(c[0][12].sum()))
+            hard = max(range(len(runs)), key=lambda i: int(runs[i][0][12].sum()))
+            a, k, _ = runs[hard]
             f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
             dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
                                    for a, k, _ in runs], "mixed_align_kernel")
             k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
-            b_ms, b_by = k2_bound_ms(n, k2_active_row_iters(a, k))
+            b_ms, b_by = k2_bound_ms(a, k2_active_row_iters(a, k))
             print(f"timing: K2 {run} run, {where} N={n}: {len(runs)} launches "
                   f"(capture pass); the one with the most valid rows "
-                  f"({int(a[12].sum())}): kernel {cuda_time_ms(f2):.4f} ms per "
-                  f"call, bound {b_ms:.6f} ms ({b_by}); device over the "
-                  f"launches: median {k2_run[(run, where, n)][0]:.4f} ms, max "
+                  f"({int(a[12].sum())}): device {dev[hard]:.4f} ms, kernel "
+                  f"{cuda_time_ms(f2):.4f} ms per call, bound {b_ms:.6f} ms "
+                  f"({b_by}; {100 * b_ms / dev[hard]:.1f}% of its device "
+                  f"time); device over the launches: median "
+                  f"{k2_run[(run, where, n)][0]:.4f} ms, max "
                   f"{k2_run[(run, where, n)][1]:.4f} ms", flush=True)
     det_ms = cuda_time_ms(lambda: detection.detect_fast_grid(
         pyr0, cell_size=25, score_threshold=20.0), reps=10, inner=5)

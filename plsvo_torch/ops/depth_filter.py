@@ -467,23 +467,6 @@ def _combine_line_endpoint_results(seeds: LineSeeds, rs: SeedUpdateResult,
         skipped=rs.skipped | re_.skipped)
 
 
-def update_line_seeds(seeds: LineSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
-                      R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter, *,
-                      patch_size: int = 8, n_epi_steps: int = 64,
-                      max_seed_kfs: int = 3,
-                      sigma_conv_factor: float = 200.0) -> LineSeedUpdateResult:
-    """Line seeds alone: each endpoint runs the point-seed chain in a batch
-    of its own, then the two updates fuse."""
-    kw = dict(patch_size=patch_size, n_epi_steps=n_epi_steps,
-              max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor)
-    args = (kf_R_w, kf_t_w, kf_flat, cur_pyr, R_w_cur, t_w_cur, fx, fy, cx,
-            cy, batch_counter)
-    rs = update_point_seeds(_line_endpoint_view(seeds, True), *args, **kw)
-    re_ = update_point_seeds(_line_endpoint_view(seeds, False), *args, **kw)
-    return _combine_line_endpoint_results(seeds, rs, re_, batch_counter,
-                                          max_seed_kfs, sigma_conv_factor)
-
-
 def scatter_new_point_seeds(full: PointSeeds, rows, mask, kf_idx, uv, f, level,
                             mu: float, sigma2: float, z_range: float,
                             batch_id: int) -> PointSeeds:

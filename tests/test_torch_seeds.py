@@ -161,7 +161,10 @@ def test_update_seeds_combined_matches_jax(seed_problem, pt_work, has_ln):
 
 
 def test_update_line_seeds_matches_jax(seed_problem):
-    """Line seeds alone, each endpoint in a batch of its own."""
+    """Line seeds alone: JAX's update_line_seeds (each endpoint in a batch
+    of its own) against the port's one line-seed path, update_seeds_combined
+    without point seeds (both endpoints in one batch; without a search
+    budget the rows do not interact)."""
     p = seed_problem
     lj = jdf.LineSeeds(**{k: jnp.asarray(v) for k, v in p["ln_cols"].items()})
     lt = tdf.LineSeeds(**{k: T(v) for k, v in p["ln_cols"].items()})
@@ -171,12 +174,14 @@ def test_update_line_seeds_matches_jax(seed_problem):
         ji.build_pyramid(jnp.asarray(p["img1"]), 3), jnp.asarray(p["R0"]),
         jnp.asarray(p["t1"]), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
         jnp.asarray(0, jnp.int32), n_epi_steps=128)
-    rt = tdf.update_line_seeds(
-        lt, T(p["R0"])[None], T(p["t0"])[None],
+    pt_res, rt = tdf.update_seeds_combined(
+        None, lt, T(p["R0"])[None], T(p["t0"])[None],
         ti.pack_pyramid_atlas_flat(
             [q[None] for q in ti.build_pyramid(T(p["img0"]), 3)]),
         ti.build_pyramid(T(p["img1"]), 3), T(p["R0"]), T(p["t1"]),
-        250.0, 250.0, 160.0, 120.0, 0, n_epi_steps=128)
+        250.0, 250.0, 160.0, 120.0, 0, has_pt=False, has_ln=True,
+        n_epi_steps=128)
+    assert pt_res is None
     for name in ("converged", "matched"):
         np.testing.assert_array_equal(getattr(rt, name).numpy(),
                                       np.asarray(getattr(rj, name)), name)
