@@ -12,32 +12,43 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
   4. lines   — detect_segments_tiled (the keyframe line detector) on the
                card vs the same code on the CPU, on bench frame 0: valid
                masks and responses equal, endpoints within 1e-2 px
-  5. runs    — FrameHandlerMono on the 752x480 plane sequence at half the
-               bench's speed (RUN_STEP), default capacities, sync path
-               without local BA: first points + lines on 40 frames (the
-               main path), then points only on 24 frames at the bench's
-               own speed;
-               each run first in an untimed pass that captures every K2
-               launch's inputs (tagged by call site), then timed, with the
+  5. runs    — FrameHandlerMono on the 752x480 plane sequence, default
+               capacities, sync path, three runs: points + lines on 40
+               frames at half the bench's speed (RUN_STEP) with
+               default_config() unmodified, local BA at every keyframe
+               (the main path); points only (has_ls=False) on 24 frames
+               at the bench's own speed, BA on; line-only (has_pt=False)
+               on LINEONLY_FRAMES frames of a line-rich texture
+               (LINEONLY_TEX), BA on. Each run first in an untimed pass
+               that captures every K2 launch's inputs (tagged by call
+               site) and every local BA problem, then timed, with the
                launch counts set to 0 just before the timed run and read
                just after it. Gates: DEFAULT reached and kept, ATE < 1% of
-               the path, one K1 launch per keyframe detection; with lines
-               also line seeds installed at keyframes, at least one line
-               landmark made from a converged seed, and a median segment
-               match count > 0 after the first line landmark
+               the path, at least one local BA solve where BA is on; with
+               points one K1 launch per keyframe detection, in line-only
+               mode no K1 launch, align2d_atlas in every tracked frame and
+               K2 only in the seed update; with lines line seeds installed
+               at keyframes and at least one line landmark made from a
+               converged seed; in the lines run a median segment match
+               count > 0 after the first line landmark
   6. K2      — the mixed-align GN kernel vs its plain twin on the inputs of
-               every launch of both capture passes
-  7. profile — 5 more frames of the lines run with each stage timed between
-               two synchronisations, then 5 under torch.profiler: device
-               busy share, kernel launches (per frame and per stage), host
-               syncs, top device ops
-  8. timing  — K1's three-level launch (device time, per-call time, bound)
+               every launch of the three capture passes
+  7. BA      — every local BA problem of the lines run solved on the card
+               and on the CPU: finite, poses and landmarks within
+               BA_POSE_ATOL / BA_LM_RTOL, every guarded write-back
+               complete; the largest window's time and kernel launches
+               per solve
+  8. profile — 5 more frames of the lines run with each stage (local BA
+               included) timed between two synchronisations, then 5 under
+               torch.profiler: device busy share, kernel launches (per
+               frame and per stage), host syncs, top device ops
+  9. timing  — K1's three-level launch (device time, per-call time, bound)
                and each level alone; K2 at the reprojection's N=384 launch
                with the most valid rows (device, per-call, bound) and its
-               device time at every call site and N of the lines run;
-               detect_fast_grid's, detect_segments_tiled's and
-               align_mixed_atlas's per-call times
-  9. report  — one JSON line per the kernel report format, the card line,
+               device time at every call site and N of the three runs;
+               detect_fast_grid's, detect_segments_tiled's,
+               align_mixed_atlas's and align2d_atlas's per-call times
+  10. report — one JSON line per the kernel report format, the card line,
                and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero, with no result line, when any phase fails or no CUDA
@@ -77,6 +88,22 @@ K2_OPS_PER_ROW_ITER = 64 * 18 + 30
 # per-frame segment matches (median 0 after it), so the gates below could
 # not tell a working port from a broken one there.
 RUN_STEP = 0.015
+# The line-only run: the bench scene's plane and camera, its texture with
+# the rectangle/blob mix of the line-rich scene of tests/test_pipeline.py
+# (420 rectangles and 40 blobs on 1024^2 texels) scaled to its 2048^2
+# texels, LINEONLY_FRAMES frames at LINEONLY_STEP m per frame.
+# `tests/lines_at_bench_speed.py --frames 28 --step 0.02 --ba --no-pt
+# --n-rects 1680 --n-blobs 160` runs both packages on the CPU on these
+# frames (rendered by JAX): both bootstrap at frame 9, make 8 line
+# landmarks (the first at frame 20) and match 8 segments in each frame
+# after it.
+LINEONLY_TEX = dict(n_rects=1680, n_blobs=160)
+LINEONLY_STEP = 0.02
+LINEONLY_FRAMES = 28
+# Local BA, card against CPU on the same packed problem (see phase_ba)
+BA_POSE_ATOL = 1e-4
+BA_LM_RTOL = 1e-3
+LAUNCH_NAMES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def fail(msg):
@@ -164,16 +191,16 @@ def calls_device_ms(calls, kernel_name, reps=10):
     return [kernel_device_ms(f, kernel_name, n=2 * reps) for f in calls]
 
 
-def bench_sequence(n_frames, device, step=0.03):
+def bench_sequence(n_frames, device, step=0.03, **tex_kw):
     """The bench.py plane sequence (step m of sideways travel per frame),
-    rendered by the port."""
+    rendered by the port; tex_kw overrides the texture's counts."""
     from plsvo_torch.camera import PinholeCamera
     from plsvo_torch.utils import synthetic
 
     W, H = 752, 480
     cam = PinholeCamera.create(W, H, 460.0, 460.0, W / 2, H / 2)
     scene = synthetic.make_scene(np.random.default_rng(3), size=2048,
-                                 texel_size=0.003)
+                                 texel_size=0.003, **tex_kw)
     Rs, ts = [], []
     for i in range(n_frames):
         ang = 0.002 * i
@@ -236,13 +263,17 @@ def phase_k1(imgs0, device):
     return pyr, worst_abs, worst_rel
 
 
-def slice_config(lines: bool):
+def run_config(kind):
+    """The configuration of each run, from default_config(): "lines"
+    unmodified (points, edgelets and lines, local BA at every keyframe,
+    sync), "points" with lines off, "lineonly" with points off."""
     from plsvo_torch.config import default_config
 
     cfg = default_config()
+    over = {"lines": {}, "points": dict(has_ls=False, init_ls=False),
+            "lineonly": dict(has_pt=False)}[kind]
     return dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, has_ls=lines, init_ls=lines, loba_enabled=False,
-        pipelined=False))
+        cfg.pipeline, **over))
 
 
 def _call_sites():
@@ -255,32 +286,43 @@ def _call_sites():
             (depth_filter, "update_seeds_combined", "seeds")]
 
 
-def phase_run(name, cam, imgs, gt_centers, device, n_main, lines):
-    """One run of the slice config (lines on or off): an untimed capture
-    pass, then the timed run with fresh launch counts."""
+def _patched(patches):
+    """Set (owner, attribute, value) patches; returns the undo function."""
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    for o, a, v in patches:
+        setattr(o, a, v)
+
+    def undo():
+        for o, a, v in saved:
+            setattr(o, a, v)
+    return undo
+
+
+def capture_pass(cam, imgs, device, n_main, cfg):
+    """The run's frames through a handler of its own, untimed, capturing
+    the inputs of every K2 launch (tagged by call site), of the first
+    reprojection call of align_mixed_atlas and of align2d_atlas, of every
+    local BA solve, and the counts of every guarded BA write-back."""
     import torch
 
     from plsvo_torch.ops import depth_filter, matcher
-    from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
-    from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
-                                                    FrameHandlerMono)
-    from plsvo_torch.pipeline.state import MapState
-    from plsvo_torch.utils import trajectory
+    from plsvo_torch.parallel import ba
+    from plsvo_torch.pipeline.frame_handler import FrameHandlerMono
 
-    cfg = slice_config(lines)
-    captured = []  # (args, kwargs, site) of every K2 launch of the capture pass
-    atlas_calls = []  # (args, kwargs) of a reprojection align_mixed_atlas
+    out = dict(k2=[], atlas={}, ba=[], write_backs=[])
     site = ["other"]
 
-    def capture(args, kwargs):
-        captured.append(([a.clone() for a in args], dict(kwargs), site[0]))
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
 
-    def capture_atlas(orig):
+    def k2_capture(args, kwargs):
+        out["k2"].append(([a.clone() for a in args], dict(kwargs), site[0]))
+
+    def first_reproject_call(name, orig):
         def wrapped(*a, **k):
-            if not atlas_calls and a[3].shape[0] == cfg.caps.max_fts:
-                atlas_calls.append(([x.clone() if torch.is_tensor(x) else x
-                                     for x in a], dict(k)))
+            if site[0] == "reproject" and name not in out["atlas"]:
+                out["atlas"][name] = ([clone(x) for x in a], dict(k))
             return orig(*a, **k)
         return wrapped
 
@@ -293,29 +335,63 @@ def phase_run(name, cam, imgs, gt_centers, device, n_main, lines):
                 site[0] = "other"
         return wrapped
 
-    # capture pass: the same frames through a handler of its own, untimed,
-    # so that the timed run below carries no capture copies
-    saved = [(m, "align_mixed_atlas", m.align_mixed_atlas)
-             for m in (matcher, depth_filter)]
-    saved += [(o, a, getattr(o, a)) for o, a, _ in _call_sites()]
-    for m, _, orig in saved[:2]:
-        m.align_mixed_atlas = capture_atlas(orig)
-    for (o, a, label), (_, _, orig) in zip(_call_sites(), saved[2:]):
-        setattr(o, a, at_site(orig, label))
-    ma.capture = capture
+    def ba_capture(orig):
+        def wrapped(blob, **k):
+            out["ba"].append((blob.detach().cpu().clone(), dict(k)))
+            return orig(blob, **k)
+        return wrapped
+
+    def write_back_capture(orig):
+        def wrapped(m, kf_R, kf_t, lm_pos, meta):
+            got = orig(m, kf_R, kf_t, lm_pos, meta)
+            # in the sync path nothing changes between the solve and its
+            # write-back, so every free keyframe and landmark row is written
+            out["write_backs"].append(
+                (got, (len(meta["kf_free"]),
+                       meta["n_points"] + meta["n_lines"])))
+            return got
+        return wrapped
+
+    patches = [(matcher, "align_mixed_atlas",
+                first_reproject_call("align_mixed_atlas",
+                                     matcher.align_mixed_atlas)),
+               (matcher, "align2d_atlas",
+                first_reproject_call("align2d_atlas", matcher.align2d_atlas)),
+               (ba, "bundle_adjust_blob", ba_capture(ba.bundle_adjust_blob)),
+               (ba, "write_back_window",
+                write_back_capture(ba.write_back_window)),
+               (ma, "capture", k2_capture)]
+    patches += [(o, a, at_site(getattr(o, a), label))
+                for o, a, label in _call_sites()]
+    undo = _patched(patches)
     try:
-        cap_vo = FrameHandlerMono(cam, cfg, device=device)
+        vo = FrameHandlerMono(cam, cfg, device=device)
         for i in range(n_main):
-            cap_vo.add_image(imgs[i], i / 30.0)
+            vo.add_image(imgs[i], i / 30.0)
     finally:
-        ma.capture = None
-        for o, a, orig in saved:
-            setattr(o, a, orig)
-    del cap_vo
+        undo()
+    return out
+
+
+def phase_run(kind, cam, imgs, gt_centers, device, n_main):
+    """One run: an untimed capture pass, then the timed run with fresh
+    launch counts."""
+    import torch
+
+    from plsvo_torch.ops import fast_score as fs
+    from plsvo_torch.ops import matcher
+    from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
+                                                    FrameHandlerMono)
+    from plsvo_torch.pipeline.state import MapState
+    from plsvo_torch.utils import trajectory
+
+    cfg = run_config(kind)
+    cap = capture_pass(cam, imgs, device, n_main, cfg)
 
     created = []  # frame of every line landmark made from a converged seed
+    a2d_frames = []  # frame of every align2d_atlas call
     frame_now = [-1]
-    orig_new_line = MapState.new_line
 
     def counting_new_line(self, *a, **k):
         r = orig_new_line(self, *a, **k)
@@ -323,10 +399,16 @@ def phase_run(name, cam, imgs, gt_centers, device, n_main, lines):
             created.append(frame_now[0])
         return r
 
+    def counting_align2d(*a, **k):
+        a2d_frames.append(frame_now[0])
+        return orig_align2d(*a, **k)
+
+    orig_new_line, orig_align2d = MapState.new_line, matcher.align2d_atlas
     vo = FrameHandlerMono(cam, cfg, device=device)
     results, ms = [], []
     k1_at_kf, ln_installs = [], []
-    MapState.new_line = counting_new_line
+    undo = _patched([(MapState, "new_line", counting_new_line),
+                     (matcher, "align2d_atlas", counting_align2d)])
     fs.launches = 0
     ma.launches = 0
     try:
@@ -345,80 +427,209 @@ def phase_run(name, cam, imgs, gt_centers, device, n_main, lines):
                 k1_at_kf.append(fs.launches - k1_before)
         launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
     finally:
-        MapState.new_line = orig_new_line
+        undo()
     gt_centers = gt_centers[:n_main]
     stages = [r.stage for r in results]
-    print(f"{name} stages:", " ".join(s[0] for s in stages), flush=True)
+    print(f"{kind} stages:", " ".join(s[0] for s in stages), flush=True)
     if STAGE_DEFAULT not in stages:
-        fail(f"{name}: never reached STAGE_DEFAULT")
+        fail(f"{kind}: never reached STAGE_DEFAULT")
     fd = stages.index(STAGE_DEFAULT)
     if any(s != STAGE_DEFAULT for s in stages[fd:]):
-        fail(f"{name}: tracking left STAGE_DEFAULT after frame {fd}: {stages[fd:]}")
+        fail(f"{kind}: tracking left STAGE_DEFAULT after frame {fd}: {stages[fd:]}")
     if len(stages) - fd < 10:
-        fail(f"{name}: only {len(stages) - fd} DEFAULT frames")
+        fail(f"{kind}: only {len(stages) - fd} DEFAULT frames")
     est = np.stack([-r.R_f_w.T @ r.t_f_w for r in results[fd:]])
     gt = gt_centers[fd:]
     if not np.isfinite(est).all():
-        fail(f"{name}: non-finite camera centres")
+        fail(f"{kind}: non-finite camera centres")
     ate = trajectory.ate_rmse(est.astype(np.float64), gt.astype(np.float64))
     path = float(np.linalg.norm(np.diff(gt, axis=0), axis=-1).sum())
     n_kf = sum(r.is_keyframe for r in results)
-    tail = ms[fd + 5:]
-    print(f"{name}: DEFAULT from frame {fd}, {len(results) - fd} tracked frames, "
+    tail = list(range(fd + 5, n_main))
+    kf_tail = [ms[i] for i in tail if results[i].is_keyframe]
+    plain_tail = [ms[i] for i in tail if not results[i].is_keyframe]
+    ms_tail = [ms[i] for i in tail]
+    print(f"{kind}: DEFAULT from frame {fd}, {len(results) - fd} tracked frames, "
           f"{n_kf} keyframes, {vo.map.n_keyframes()} in the map, "
           f"{int((vo.map.pt_status > 0).sum())} point landmarks, median point "
           f"matches {np.median([r.n_pt_matches for r in results[fd:]]):.0f}",
           flush=True)
-    print(f"{name}: Sim3 ATE {ate:.6f} m over a {path:.3f} m path "
+    print(f"{kind}: Sim3 ATE {ate:.6f} m over a {path:.3f} m path "
           f"({100 * ate / path:.3f}%)", flush=True)
-    print(f"{name}: per-frame ms (DEFAULT frames after the first 5, n={len(tail)}): "
-          f"median {np.median(tail):.2f}, p90 {np.percentile(tail, 90):.2f}",
+    print(f"{kind}: per-frame ms (DEFAULT frames after the first 5, "
+          f"n={len(ms_tail)}): median {np.median(ms_tail):.2f}, p90 "
+          f"{np.percentile(ms_tail, 90):.2f}; keyframe frames (n="
+          f"{len(kf_tail)}) median "
+          + (f"{np.median(kf_tail):.2f} p90 {np.percentile(kf_tail, 90):.2f}"
+             if kf_tail else "none")
+          + f"; other frames (n={len(plain_tail)}) median "
+          f"{np.median(plain_tail):.2f} p90 {np.percentile(plain_tail, 90):.2f}",
           flush=True)
-    print(f"{name}: launches {launches}; K1 launches at DEFAULT keyframes "
+    print(f"{kind}: launches {launches}; K1 launches at DEFAULT keyframes "
           f"{k1_at_kf}", flush=True)
     if ate >= 0.01 * path:
-        fail(f"{name}: ATE {ate} >= 1% of the path length {path}")
-    if launches["fast_score"] <= 0 or launches["mixed_align"] <= 0:
-        fail(f"{name}: a kernel of the path never launched: {launches}")
-    if not k1_at_kf or any(k != 1 for k in k1_at_kf):
-        fail(f"{name}: K1 launches per tracked keyframe are {k1_at_kf}, not one each")
+        fail(f"{kind}: ATE {ate} >= 1% of the path length {path}")
+    if launches["mixed_align"] <= 0:
+        fail(f"{kind}: K2 never launched: {launches}")
+    if kind == "lineonly":
+        # no point detector: K1 never runs; every tracked frame refines its
+        # points and endpoints through align2d_atlas, so K2 runs only in
+        # the seed update
+        if launches["fast_score"] != 0:
+            fail(f"{kind}: K1 launched {launches['fast_score']} times in "
+                 "line-only mode")
+        missing = sorted(set(range(fd + 1, n_main)) - set(a2d_frames))
+        if missing:
+            fail(f"{kind}: align2d_atlas not reached in tracked frames {missing}")
+        sites = sorted({s for _, _, s in cap["k2"]})
+        if sites != ["seeds"]:
+            fail(f"{kind}: K2 launched from {sites}, not only the seed update")
+        print(f"{kind}: align2d_atlas calls {len(a2d_frames)} over "
+              f"{n_main - fd - 1} tracked frames after the bootstrap; K2 call "
+              f"sites {sites}", flush=True)
+    else:
+        if launches["fast_score"] <= 0:
+            fail(f"{kind}: K1 never launched: {launches}")
+        if not k1_at_kf or any(k != 1 for k in k1_at_kf):
+            fail(f"{kind}: K1 launches per tracked keyframe are {k1_at_kf}, "
+                 "not one each")
     seg_med = None
-    if lines:
+    if kind != "points":
         seg = [r.n_seg_matches for r in results]
-        print(f"{name}: line seeds installed at the keyframes {ln_installs}; "
+        print(f"{kind}: line seeds installed at the keyframes {ln_installs}; "
               f"{len(created)} line landmarks made from converged seeds (first "
               f"at frame {created[0] if created else None}), "
               f"{int((vo.map.ln_status > 0).sum())} live at the end; segment "
               f"matches per frame {seg}", flush=True)
         if not ln_installs or sum(ln_installs[1:]) <= 0:
-            fail(f"{name}: no line seed installed at a tracked keyframe: "
+            fail(f"{kind}: no line seed installed at a tracked keyframe: "
                  f"{ln_installs}")
         if not created:
-            fail(f"{name}: no line landmark was made from a converged seed")
+            fail(f"{kind}: no line landmark was made from a converged seed")
         after = [n for r, n in zip(results, seg)
                  if r.stage == STAGE_DEFAULT and r.frame_id > created[0]]
         seg_med = float(np.median(after)) if after else 0.0
-        print(f"{name}: median segment matches over the {len(after)} tracked "
+        print(f"{kind}: median segment matches over the {len(after)} tracked "
               f"frames after the first line landmark: {seg_med:.1f} (over all "
               f"tracked frames {np.median(seg[fd:]):.1f})", flush=True)
-        if seg_med <= 0:
-            fail(f"{name}: median segment matches after the first line "
+        if kind == "lines" and seg_med <= 0:
+            fail(f"{kind}: median segment matches after the first line "
                  f"landmark is {seg_med}")
     # per-stage host wall time (stage timers of the frame handler) over the
-    # same frames as the per-frame ms
+    # same frames as the per-frame ms, and each local BA's stage time
     vo.permon.finish()
     recs = [r for r in vo.permon.frames if r["frame"] >= fd + 5]
     keys = sorted({k for r in recs for k in r if k.startswith("t_")})
     stage_ms = {k[2:]: (1e3 * float(np.median([r.get(k, 0.0) for r in recs])),
                         1e3 * float(np.mean([r.get(k, 0.0) for r in recs])))
                 for k in keys}
-    print(f"{name}: per-stage host ms (median, mean): " + ", ".join(
+    print(f"{kind}: per-stage host ms (median, mean): " + ", ".join(
         f"{k} {a:.2f}/{b:.2f}" for k, (a, b) in stage_ms.items()), flush=True)
-    return dict(vo=vo, launches=launches, n_frames=len(results),
-                captured=captured, atlas_calls=atlas_calls, ate=ate, path=path,
-                ms_median=float(np.median(tail)),
-                ms_p90=float(np.percentile(tail, 90)), seg_median=seg_med,
+    ba_recs = [r for r in vo.permon.frames if "local_ba_kfs" in r]
+    ba_ms = [1e3 * r["t_local_ba"] for r in ba_recs]
+    if cfg.pipeline.loba_enabled:
+        print(f"{kind}: {len(ba_recs)} local BA solves (frames "
+              f"{[r['frame'] for r in ba_recs]}), stage ms "
+              f"{[round(x, 2) for x in ba_ms]}, keyframes / landmarks written "
+              f"{[(int(r['local_ba_kfs']), int(r['local_ba_landmarks'])) for r in ba_recs]}",
+              flush=True)
+        if not ba_recs:
+            fail(f"{kind}: local BA never solved a window")
+    return dict(vo=vo, launches=launches, n_frames=len(results), kind=kind,
+                captured=cap["k2"], atlas_calls=cap["atlas"], ba=cap["ba"],
+                write_backs=cap["write_backs"], ate=ate, path=path,
+                ms_median=float(np.median(ms_tail)),
+                ms_p90=float(np.percentile(ms_tail, 90)),
+                kf_ms_p90=(float(np.percentile(kf_tail, 90)) if kf_tail
+                           else None),
+                ba_stage_ms=ba_ms, seg_median=seg_med,
                 n_lines_made=len(created))
+
+
+def launch_count(fn):
+    """Kernel launches of one call of fn, as torch.profiler counts them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_NAMES)
+
+
+def phase_ba(run, device):
+    """Every local BA problem of the run's capture pass, solved on the card
+    and on the CPU from the same packed blob: finite outputs, poses and
+    landmarks within BA_POSE_ATOL / BA_LM_RTOL (the scatter-adds sum with
+    atomics on the card and in order on the CPU, so the two differ in the
+    last bits, amplified in the near-singular line-endpoint blocks), and
+    every guarded write-back of the run complete. Then the per-call time of
+    the solve (host clock, synchronised) and its kernel launches."""
+    import torch
+
+    from plsvo_torch.parallel import ba
+    from plsvo_torch.pipeline import fused
+
+    probs, wbs = run["ba"], run["write_backs"]
+    if not probs:
+        fail("BA: the lines run solved no local BA window")
+    short = [(got, want) for got, want in wbs if got != want]
+    if short:
+        fail(f"BA: guarded write-backs wrote (keyframes, landmarks) {short} "
+             "where the window had more")
+    errs = []
+    for blob, kw in probs:
+        K, L, O, _ = kw["spec"]
+        outs = []
+        for dev in (device, "cpu"):
+            p, st = ba.bundle_adjust_blob(blob.to(dev), **kw)
+            outs.append(fused.fetch((p.kf_R, p.kf_t, p.lm_pos, p.lm_valid,
+                                     st.chi2, st.n_obs)))
+        (Rk, tk, lk, vk, ck, nk), (Rc, tc, lc, _, cc, nc) = outs
+        if not all(np.isfinite(a).all() for a in (Rk, tk, lk[vk], ck)):
+            fail(f"BA K={K} L={L}: non-finite card output")
+        if nk != nc:
+            fail(f"BA K={K} L={L}: {nk} observations on the card, {nc} on "
+                 "the CPU")
+        pose = max(float(np.abs(Rk - Rc).max()), float(np.abs(tk - tc).max()))
+        lm = float((np.linalg.norm(lk - lc, axis=-1)
+                    / np.maximum(np.linalg.norm(lc, axis=-1), 1e-6))[vk].max())
+        errs.append((K, L, int(vk.sum()), pose, lm, float(ck), float(cc)))
+        if pose > BA_POSE_ATOL or lm > BA_LM_RTOL:
+            fail(f"BA K={K} L={L}: card vs CPU pose err {pose} (atol "
+                 f"{BA_POSE_ATOL}), landmark rel err {lm} (rtol {BA_LM_RTOL})")
+    for K, L, n, pose, lm, ck, cc in errs:
+        print(f"BA K={K} L={L} ({n} landmark rows): card vs CPU pose max abs "
+              f"err {pose:.3e}, landmark max rel err {lm:.3e}, chi2 {ck:.6e} "
+              f"/ {cc:.6e}", flush=True)
+    print(f"BA: {len(probs)} windows, write-backs complete {wbs}", flush=True)
+    # the largest window: per-call time and launches of the solve as the
+    # frame handler runs it (upload, solve, one fetch)
+    blob, kw = max(probs, key=lambda p: p[1]["spec"][1])
+    host = blob.numpy()
+
+    def solve():
+        p, _ = ba.bundle_adjust_blob(torch.as_tensor(host).to(device), **kw)
+        return fused.fetch((p.kf_R, p.kf_t, p.lm_pos))
+
+    solve()
+    torch.cuda.synchronize()
+    t = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        t.append((time.perf_counter() - t0) * 1e3)
+    n_launch = launch_count(solve)
+    K, L, O, _ = kw["spec"]
+    print(f"BA: largest window K={K} L={L} O={O} n_iter={kw['n_iter']}: "
+          f"{np.median(t):.2f} ms per solve (median of 10, min "
+          f"{min(t):.2f}), {n_launch} kernel launches per solve", flush=True)
+    return dict(n=len(probs), ms=float(np.median(t)), launches=n_launch,
+                K=K, L=L, O=O, errs=errs)
 
 
 def phase_lines(img, device):
@@ -535,6 +746,7 @@ def _stage_hooks():
         (depth_filter, "update_seeds_combined", "update_seeds"),
         (fused, "fetch", "fetch"),
         (frame_handler, "_kf_detect_program", "kf_detect"),
+        (frame_handler.FrameHandlerMono, "_dispatch_local_ba", "local_ba"),
         (lines, "detect_segments_tiled", "detect_segments_tiled"),
         (depth_filter, "scatter_new_point_seeds_blob", "kf_seed_install"),
         (depth_filter, "scatter_new_line_seeds_blob", "kf_line_seed_install"),
@@ -617,8 +829,7 @@ def phase_profile(vo, imgs, first, n_win, base_ms):
               and not e.name.startswith("stage:")]
     n = n_win
     busy_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
-    launch_names = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
-    launches = sum(count(k) for k in launch_names)
+    launches = sum(count(k) for k in LAUNCH_NAMES)
     syncs = count("aten::_local_scalar_dense")
     print(f"profile: window 2 ({n} frames, under torch.profiler): wall "
           f"{wall_ms / n:.2f} ms/frame, device busy "
@@ -635,7 +846,7 @@ def phase_profile(vo, imgs, first, n_win, base_ms):
     def walk(e, label):
         if e.name.startswith("stage:"):
             label = e.name[6:]
-        if e.name in launch_names:
+        if e.name in LAUNCH_NAMES:
             per_stage[label] = per_stage.get(label, 0) + 1
         for c in e.cpu_children:
             walk(c, label)
@@ -683,19 +894,23 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
-    n_main, n_pts, n_win = 40, 24, 5
+    n_main, n_pts, n_lo, n_win = 40, 24, LINEONLY_FRAMES, 5
     cam, imgs, gt = bench_sequence(n_main + 2 * n_win, device, step=RUN_STEP)
     _, imgs_p, gt_p = bench_sequence(n_pts, device)
+    _, imgs_l, gt_l = bench_sequence(n_lo, device, step=LINEONLY_STEP,
+                                     **LINEONLY_TEX)
     torch.cuda.synchronize()
-    print(f"rendered {imgs.shape[0]} + {imgs_p.shape[0]} frames "
-          f"{tuple(imgs.shape[1:])} in {time.perf_counter() - t0:.1f} s",
+    print(f"rendered {imgs.shape[0]} + {imgs_p.shape[0]} + {imgs_l.shape[0]} "
+          f"frames {tuple(imgs.shape[1:])} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     pyr0, k1_abs, k1_rel = phase_k1(imgs[0], device)
     phase_lines(imgs[0], device)
-    sl = phase_run("lines", cam, imgs, gt, device, n_main, lines=True)
-    sp = phase_run("points", cam, imgs_p, gt_p, device, n_pts, lines=False)
-    k2 = phase_k2(sl["captured"] + sp["captured"])
+    sl = phase_run("lines", cam, imgs, gt, device, n_main)
+    sp = phase_run("points", cam, imgs_p, gt_p, device, n_pts)
+    so = phase_run("lineonly", cam, imgs_l, gt_l, device, n_lo)
+    k2 = phase_k2(sl["captured"] + sp["captured"] + so["captured"])
+    sb = phase_ba(sl, device)
     phase_profile(sl["vo"], imgs, n_main, n_win, sl["ms_median"])
 
     # ---- timings at the main path's shapes ----
@@ -714,7 +929,7 @@ def main():
              >= px * K1_OPS_PER_PX / F32_OPS_PER_S else "operations")
     # the reprojection's launch (N = max_fts + 2 * max_segs = 384: points
     # and both endpoints of the selected lines) with the most valid rows
-    caps = slice_config(True).caps
+    caps = run_config("lines").caps
     n_k2 = caps.max_fts + 2 * caps.max_segs
     reproj = [c for c in sl["captured"]
               if c[2] == "reproject" and c[0][0].shape[0] == n_k2]
@@ -743,9 +958,9 @@ def main():
               f"{cuda_time_ms(f1):.4f} ms per call (device "
               f"{kernel_device_ms(f1, 'fast_score_kernel'):.4f} ms)", flush=True)
     # K2's device time depends on the data (the warp leaves once its rows
-    # are inactive): every launch of both runs, replayed, by call site and N
+    # are inactive): every launch of the runs, replayed, by call site and N
     k2_run = {}
-    for run, res in (("lines", sl), ("points", sp)):
+    for run, res in (("lines", sl), ("points", sp), ("lineonly", so)):
         groups = {}
         for c in res["captured"]:
             groups.setdefault((c[2], c[0][0].shape[0]), []).append(c)
@@ -772,11 +987,16 @@ def main():
         pyr0[0], n_peaks=64, run_gap_px=3.0, dist_tol=1.2), reps=5, inner=2)
     msg = (f"timing: detect_fast_grid (3 levels) {det_ms:.4f} ms per call; "
            f"detect_segments_tiled (480x752) {seg_ms:.4f} ms per call")
-    if sl["atlas_calls"]:
-        a, k = sl["atlas_calls"][0]
-        al_ms = cuda_time_ms(lambda: feature_align.align_mixed_atlas(*a, **k),
-                             reps=10, inner=5)
-        msg += f"; align_mixed_atlas (N={a[3].shape[0]}) {al_ms:.4f} ms per call"
+    # the reprojection's refinement, per call: the mixed loop around K2
+    # (lines run) and the plain align2d_atlas loop (line-only run)
+    for fn, res in (("align_mixed_atlas", sl), ("align2d_atlas", so)):
+        if fn in res["atlas_calls"]:
+            a, k = res["atlas_calls"][fn]
+            f = getattr(feature_align, fn)
+            al_ms = cuda_time_ms(lambda: f(*a, **k), reps=10, inner=5)
+            msg += f"; {fn} (N={a[3].shape[0]}) {al_ms:.4f} ms per call"
+        else:
+            fail(f"{fn}: no reprojection call captured")
     print(msg, flush=True)
 
     nf = sl["n_frames"]
@@ -789,8 +1009,9 @@ def main():
     # "kernel_ms" the kernel's own device time (K2: on the reprojection
     # launch of N=384 with the most valid rows; "kernel_ms_run_median" and
     # "_max" over all the lines run's reprojection launches of that N).
-    # "launches" counts the main path's (points + lines) run;
-    # "launches_points_only" the points-only run.
+    # "launches" counts the main path's run (default_config(): points +
+    # lines + local BA); "launches_points_only" and "launches_line_only"
+    # the other two runs.
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda",
          "source": "plsvo_torch/csrc/fast_score.cu",
@@ -798,6 +1019,7 @@ def main():
          "launches": sl["launches"]["fast_score"],
          "launches_per_frame": sl["launches"]["fast_score"] / nf,
          "launches_points_only": sp["launches"]["fast_score"],
+         "launches_line_only": so["launches"]["fast_score"],
          "max_abs_err": k1_abs, "max_abs_err_kind": "abs_score",
          "max_err": k1_rel, "max_err_kind": "rel_score",
          "ms": k1_ms, "kernel_ms": k1_dev, "plain_ms": k1_plain,
@@ -809,6 +1031,7 @@ def main():
          "launches": sl["launches"]["mixed_align"],
          "launches_per_frame": sl["launches"]["mixed_align"] / nf,
          "launches_points_only": sp["launches"]["mixed_align"],
+         "launches_line_only": so["launches"]["mixed_align"],
          "max_abs_err": k2_uv, "max_abs_err_kind": "abs_uv_px",
          "max_err": k2_md, "max_err_kind": "abs_mean_diff",
          "ms": k2_ms, "kernel_ms": k2_dev, "plain_ms": k2_plain,
@@ -818,10 +1041,15 @@ def main():
          "shape": [n_k2]},
     ]}
     print(f"summary: lines run ATE {sl['ate']:.6f} m, per-frame ms median "
-          f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f}, {sl['n_lines_made']} "
-          f"line landmarks, median segment matches {sl['seg_median']:.1f}; "
-          f"points run ATE {sp['ate']:.6f} m, per-frame ms median "
-          f"{sp['ms_median']:.2f} p90 {sp['ms_p90']:.2f}", flush=True)
+          f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f} (keyframe frames p90 "
+          f"{sl['kf_ms_p90']}), {sl['n_lines_made']} line landmarks, median "
+          f"segment matches {sl['seg_median']:.1f}; local BA {sb['n']} "
+          f"windows, {sb['ms']:.2f} ms and {sb['launches']} launches per solve "
+          f"(K={sb['K']}, L={sb['L']}); points run ATE {sp['ate']:.6f} m, "
+          f"per-frame ms median {sp['ms_median']:.2f} p90 {sp['ms_p90']:.2f}; "
+          f"line-only run ATE {so['ate']:.6f} m, per-frame ms median "
+          f"{so['ms_median']:.2f} p90 {so['ms_p90']:.2f}, {so['n_lines_made']} "
+          f"line landmarks", flush=True)
     print(json.dumps(report), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """Batched subpixel feature alignment (inverse-compositional KLT).
 
-Port of the parts of `plsvo_tpu/ops/feature_align.py` on the slice's path:
-`ref_patch_gradients`, `align2d` (bootstrap KLT) and `align_mixed_atlas`,
-whose Gauss-Newton loop is `ops.mixed_align.mixed_align` (the CUDA kernel
-for CUDA tensors). The window gather and the H^-1 prefix stay plain torch,
-as they sit outside the kernel in the JAX package too.
+Port of the parts of `plsvo_tpu/ops/feature_align.py` on the sync path:
+`ref_patch_gradients`, `align2d` (bootstrap KLT), `align2d_atlas` (direct
+matching without edgelets, plain torch as in the JAX package) and
+`align_mixed_atlas`, whose Gauss-Newton loop is
+`ops.mixed_align.mixed_align` (the CUDA kernel for CUDA tensors). The
+window gather and the H^-1 prefix stay plain torch, as they sit outside
+the kernel in the JAX package too.
 """
 from __future__ import annotations
 
@@ -66,6 +68,45 @@ def align2d(cur_img, ref_patch, ref_dx, ref_dy, uv_init, valid, *,
             break
     _, ok = bilinear_sample(cur_img, uv[:, None, :] + offs[None])
     return AlignOut(uv=uv, converged=conv & valid & ok.all(-1), mean_diff=md)
+
+
+def align2d_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
+                  level, valid, *, patch_size: int = 8, n_iter: int = 10,
+                  conv_eps: float = 0.03) -> AlignOut:
+    """align2d with per-feature pyramid levels through the atlas: one
+    (P+1+2*4, rounded up to even: 18x18 at P=8) window per row is gathered
+    before the loop, and every iteration resamples inside it. A row
+    drifting past the window margin is masked invalid.
+
+    The loop runs all n_iter iterations with per-row predication and no
+    host sync. That gives the JAX while_loop's result, which stops once no
+    row is active: an inactive row never changes again."""
+    from plsvo_torch.image import (gather_patch_windows_atlas,
+                                   sample_patch_windows)
+
+    N = ref_patch.shape[0]
+    wp = patch_size + 1 + 2 * 4
+    wp += wp % 2
+    J = torch.stack([ref_dx, ref_dy, torch.ones_like(ref_dx)], -1)
+    Hinv = inv3x3(_jtj(J), 1e-6)
+    uv = uv_init.to(torch.float32)
+    win, corner = gather_patch_windows_atlas(atlas, x_off, uv, level, wp)
+    wh = (sizes[level, 1].float(), sizes[level, 0].float())
+    md = torch.zeros(N, dtype=torch.float32, device=uv.device)
+    conv = torch.zeros(N, dtype=torch.bool, device=uv.device)
+    for _ in range(n_iter):
+        I_cur, in_frame = sample_patch_windows(win, corner, uv, patch_size,
+                                               wh=wh)
+        r = I_cur - ref_patch + md[:, None]
+        b = torch.einsum("npi,np->ni", J, r)
+        upd = (Hinv @ b[..., None])[..., 0]
+        active = valid & in_frame & ~conv
+        uv = torch.where(active[:, None], uv - upd[:, :2], uv)
+        md = torch.where(active, md - upd[:, 2], md)
+        conv = conv | (active & (torch.linalg.norm(upd[:, :2], dim=-1)
+                                 < conv_eps))
+    _, ok = sample_patch_windows(win, corner, uv, patch_size, wh=wh)
+    return AlignOut(uv=uv, converged=conv & valid & ok, mean_diff=md)
 
 
 def align_mixed_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,

@@ -14,7 +14,8 @@ from plsvo_torch.batlin import inv2x2
 from plsvo_torch.indexing import to_int32
 from plsvo_torch.image import (gather_windows_raw, patch_offsets,
                                sample_in_window)
-from plsvo_torch.ops.feature_align import align_mixed_atlas, ref_patch_gradients
+from plsvo_torch.ops.feature_align import (align2d_atlas, align_mixed_atlas,
+                                          ref_patch_gradients)
 
 
 def get_warp_affine(fx, fy, cx, cy, uv_ref, f_ref, depth_ref, level_ref,
@@ -164,8 +165,9 @@ def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
                             n_iter: int = 10, max_level: int = 2,
                             has_edgelets: bool = False) -> MatchResult:
     """Batched direct match: affine-warp the anchor patch, pick the search
-    level, refine in the current frame (corners 2-D, edgelets 1-D along the
-    warped gradient direction, in one mixed GN loop)."""
+    level, refine in the current frame. With has_edgelets, corners 2-D and
+    edgelets 1-D along the warped gradient direction in one mixed GN loop;
+    without, every row 2-D through align2d_atlas."""
     A, A_ok, A_inv, slevel = _warp_and_ref(
         kf_flat, kf_idx, uv_ref, f_ref, depth_ref, level_ref, R_cur_ref,
         t_cur_ref, fx, fy, cx, cy, max_level, patch_size)
@@ -175,17 +177,19 @@ def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
     ref_patch, ref_dx, ref_dy = ref_patch_gradients(patches_b, patch_size)
     ok0 = valid & warp_ok & A_ok
     scale = 1.0 / (1 << slevel.long()).float()
-    if not (has_edgelets and ftype is not None):
-        # the JAX package refines these with align2d_atlas, whose 18x18
-        # window differs from the mixed loop's 16x16
-        raise NotImplementedError(
-            "use_edgelets=False (align2d_atlas) is not ported")
-    is_edge = ftype == 1
-    d_cur = (A @ grad_dir[..., None])[..., 0]
-    res = align_mixed_atlas(
-        cur_atlas, cur_x_off, cur_sizes, ref_patch, ref_dx, ref_dy,
-        uv_cur_init * scale[:, None], d_cur, is_edge, slevel, ok0,
-        patch_size=patch_size, n_iter=n_iter)
+    if has_edgelets and ftype is not None:
+        is_edge = ftype == 1
+        d_cur = (A @ grad_dir[..., None])[..., 0]
+        res = align_mixed_atlas(
+            cur_atlas, cur_x_off, cur_sizes, ref_patch, ref_dx, ref_dy,
+            uv_cur_init * scale[:, None], d_cur, is_edge, slevel, ok0,
+            patch_size=patch_size, n_iter=n_iter)
+    else:
+        # without edgelets every row refines 2-D in its own 18x18 window
+        res = align2d_atlas(
+            cur_atlas, cur_x_off, cur_sizes, ref_patch, ref_dx, ref_dy,
+            uv_cur_init * scale[:, None], slevel, ok0,
+            patch_size=patch_size, n_iter=n_iter)
     return MatchResult(uv=res.uv / scale[:, None], level=slevel,
                        ok=res.converged & ok0)
 

@@ -7,13 +7,15 @@ Port of the synchronous path of `plsvo_tpu/pipeline/frame_handler.py`:
     SECOND  -> KLT + homography bootstrap
     DEFAULT -> one device step (align -> reproject -> pose opt -> structure
                opt -> seed update), one result fetch, host bookkeeping,
-               keyframe decision, new seeds at keyframes
+               keyframe decision; at keyframes new seeds, then windowed
+               local BA
     RELOC   -> align against the closest keyframe
 
-The port covers points, edgelets and line segments in the sync path
-(loba_enabled=False, pipelined=False) on a pinhole camera; the other
-settings raise NotImplementedError. Host bookkeeping is the JAX package's
-numpy code, so the host decisions match.
+The port covers the whole sync path (pipelined=False) on a pinhole camera:
+points, edgelets and line segments, line-only mode (has_pt=False),
+use_edgelets=False, the pose refinement phase and local BA.
+pipelined=True and other camera models raise NotImplementedError. Host
+bookkeeping is the JAX package's numpy code, so the host decisions match.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from plsvo_torch.ops import detection, homography
 from plsvo_torch.ops import klt as klt_ops
 from plsvo_torch.ops import lines as line_ops
 from plsvo_torch.ops import sparse_align
+from plsvo_torch.parallel import ba
 from plsvo_torch.pipeline import fused
 from plsvo_torch.pipeline.state import (FrameState, MapState, ST_CANDIDATE,
                                         ST_DELETED, ST_GOOD, ST_UNKNOWN)
@@ -78,15 +81,31 @@ def _detect_segments_levels(pyr, n_levels: int):
         *[torch.cat(xs) for xs in zip(*parts)])
 
 
-def _kf_detect_program(pyr, occ_uv, occ_ok, *, use_ls, n_pyr, n_pyr_segs,
-                       cell_size, score_threshold, mag_threshold, width,
-                       height):
-    """Keyframe seed detection: FAST grid + edgelets + tiled line segments
-    (raw candidates) + cell occupancy."""
-    grid = detection.detect_fast_grid(pyr[:n_pyr], cell_size=cell_size,
-                                      score_threshold=score_threshold)
-    egrid = detection.detect_edgelets_grid(pyr[0], cell_size=cell_size,
-                                           mag_threshold=mag_threshold)
+def _empty_corner_grid(width: int, height: int, cell_size: int, device):
+    """The no-op point detector of line-only mode: every cell empty."""
+    _, _, n_cells = detection.grid_cells(width, height, cell_size)
+    return detection.CornerGrid(
+        uv=torch.zeros((n_cells, 2), device=device),
+        level=torch.zeros(n_cells, dtype=torch.int32, device=device),
+        score=torch.zeros(n_cells, device=device),
+        valid=torch.zeros(n_cells, dtype=torch.bool, device=device))
+
+
+def _kf_detect_program(pyr, occ_uv, occ_ok, *, use_pt, use_ls, use_edgelets,
+                       n_pyr, n_pyr_segs, cell_size, score_threshold,
+                       mag_threshold, width, height):
+    """Keyframe seed detection: FAST grid (an empty grid without points),
+    edgelets (when use_pt and use_edgelets), tiled line segments (raw
+    candidates, when use_ls) and cell occupancy."""
+    if use_pt:
+        grid = detection.detect_fast_grid(pyr[:n_pyr], cell_size=cell_size,
+                                          score_threshold=score_threshold)
+    else:
+        grid = _empty_corner_grid(width, height, cell_size, occ_uv.device)
+    egrid = None
+    if use_pt and use_edgelets:
+        egrid = detection.detect_edgelets_grid(pyr[0], cell_size=cell_size,
+                                               mag_threshold=mag_threshold)
     segs = _detect_segments_levels(pyr, n_pyr_segs) if use_ls else None
     occupied = detection.occupancy_from_positions(occ_uv, occ_ok, width,
                                                   height, cell_size)
@@ -97,15 +116,9 @@ def _check_supported(cam, cfg: Config):
     if not isinstance(cam, PinholeCamera):
         raise NotImplementedError(f"camera model {type(cam).__name__} is not "
                                   "ported (only PinholeCamera)")
-    pl = cfg.pipeline
-    for name, bad in (("loba_enabled", pl.loba_enabled),
-                      ("pipelined", pl.pipelined),
-                      ("has_pt", not pl.has_pt),
-                      ("use_edgelets", not pl.use_edgelets),
-                      ("has_refinement", pl.has_refinement)):
-        if bad:
-            raise NotImplementedError(
-                f"config pipeline.{name}={getattr(pl, name)} is not ported")
+    if cfg.pipeline.pipelined:
+        raise NotImplementedError("config pipeline.pipelined=True is not "
+                                  "ported (only the sync path)")
 
 
 class FrameHandlerMono:
@@ -184,12 +197,17 @@ class FrameHandlerMono:
         return res
 
     # ------------------------------------------------------------------
-    def _detect_features(self, pyr, use_ls: bool):
-        """FAST grid corners (and raw line candidates when use_ls)."""
+    def _detect_features(self, pyr, use_pt: bool, use_ls: bool):
+        """FAST grid corners (an empty grid when not use_pt) and raw line
+        candidates (when use_ls)."""
         pl = self.cfg.pipeline
-        grid = detection.detect_fast_grid(
-            pyr[: pl.n_pyr_levels], cell_size=pl.grid_size,
-            score_threshold=pl.triang_min_corner_score)
+        if use_pt:
+            grid = detection.detect_fast_grid(
+                pyr[: pl.n_pyr_levels], cell_size=pl.grid_size,
+                score_threshold=pl.triang_min_corner_score)
+        else:
+            grid = _empty_corner_grid(self.cam.width, self.cam.height,
+                                      pl.grid_size, self.device)
         segs = _detect_segments_levels(pyr, pl.n_pyr_levels_segs) if use_ls else None
         return grid, segs
 
@@ -209,13 +227,18 @@ class FrameHandlerMono:
                                  np.eye(3, dtype=np.float32),
                                  np.zeros(3, np.float32))
         grid, segs = fused.fetch(self._detect_features(
-            pyr, use_ls=pl.has_ls and pl.init_ls))
+            pyr, use_pt=pl.has_pt and pl.init_pt,
+            use_ls=pl.has_ls and pl.init_ls))
         targets = [grid.uv[grid.valid]]
         if segs is not None:
-            # each segment gives KLT targets at its start, middle and end
+            # each segment gives KLT targets at its start, middle and end;
+            # in line-only mode, where segments are the only targets, at
+            # its quarter points too
             segs = self._dedup_segments_host(segs)
             sp, ep = segs.sp[segs.valid], segs.ep[segs.valid]
-            targets += [sp + a * (ep - sp) for a in (0.0, 0.5, 1.0)]
+            alphas = ((0.0, 0.5, 1.0) if pl.has_pt
+                      else (0.0, 0.25, 0.5, 0.75, 1.0))
+            targets += [sp + a * (ep - sp) for a in alphas]
         targets = np.concatenate(targets, 0)
         if len(targets) < self.cfg.pipeline.init_min_fts:
             return FrameResult(frame.frame_id, self.stage, QUALITY_INSUFFICIENT,
@@ -352,7 +375,9 @@ class FrameHandlerMono:
             max_pts_out=self.cfg.caps.max_fts,
             max_segs_out=self.cfg.caps.max_segs,
             n_line_samples=self.cfg.caps.n_line_samples,
-            poseopt_iters=pl.poseoptim_num_iter, poseopt_iters_ref=0,
+            poseopt_iters=pl.poseoptim_num_iter,
+            poseopt_iters_ref=(pl.poseoptim_num_iter_ref
+                               if pl.has_refinement else 0),
             poseopt_thresh=pl.poseoptim_thresh,
             n_pyr_use=pl.n_pyr_levels, has_ls=pl.has_ls,
             has_edgelets=pl.use_edgelets and pl.has_pt,
@@ -533,12 +558,23 @@ class FrameHandlerMono:
 
     # ------------------------------------------------------------------
     def _tracking_quality(self, n_pt: int, n_seg: int) -> str:
+        """INSUFFICIENT below quality_min_fts point + segment matches; BAD
+        when the point matches drop by more than quality_max_drop_fts (in
+        line-only mode: the segment matches by more than
+        quality_max_drop_fts_segs)."""
         pl = self.cfg.pipeline
         if n_pt + n_seg < pl.quality_min_fts:
             return QUALITY_INSUFFICIENT
-        last_pt = self.results[-1].n_pt_matches if self.results else n_pt
-        if min(last_pt, pl.max_fts) - n_pt > pl.quality_max_drop_fts:
-            return QUALITY_BAD
+        last = self.results[-1] if self.results else None
+        if pl.has_pt:
+            last_pt = last.n_pt_matches if last else n_pt
+            if min(last_pt, pl.max_fts) - n_pt > pl.quality_max_drop_fts:
+                return QUALITY_BAD
+        else:
+            last_seg = last.n_seg_matches if last else n_seg
+            if (min(last_seg, pl.max_fts_segs) - n_seg
+                    > pl.quality_max_drop_fts_segs):
+                return QUALITY_BAD
         return QUALITY_GOOD
 
     def _need_new_kf(self, frame: FrameState) -> bool:
@@ -575,6 +611,42 @@ class FrameHandlerMono:
         self.batch_counter += 1
         with self.permon.timer("kf_init_seeds"):
             self._init_seeds(frame, d_mean, max(d_min * 0.1, 1e-3))
+        if self.cfg.pipeline.loba_enabled:
+            with self.permon.timer("local_ba"):
+                self._dispatch_local_ba(frame)
+
+    def _dispatch_local_ba(self, frame: FrameState):
+        """Windowed BA at a keyframe: core = the new keyframe and its
+        core_n_kfs closest FoV-overlapping keyframes, the other keyframes
+        fixed. One packed upload, the solve, one fetch, then the guarded
+        write-back, which drops every device copy of the map. Logs the
+        keyframes and landmarks written back."""
+        m = self.map
+        kf_slot = int(np.where(m.kf_frame_id == frame.frame_id)[0][0])
+        overl = sorted(m.overlap_kfs(frame.R_f_w, frame.t_f_w, self._fx,
+                                     self._fy, self._cx, self._cy),
+                       key=lambda kd: kd[1])
+        core = {k for k, _ in overl[: self.cfg.pipeline.core_n_kfs]}
+        core.add(kf_slot)
+        if m.n_keyframes() < 3:
+            return  # bootstrap window: nothing to adjust yet
+        prob, meta = ba.problem_from_window(m, self.cfg, sorted(core))
+        if meta["n_points"] + meta["n_lines"] == 0:
+            return
+        blob, spec = ba.problem_blob(prob)
+        kf_R, kf_t, lm_pos = fused.fetch(self._solve_local_ba(blob, spec))
+        n_kf, n_lm = ba.write_back_window(m, kf_R, kf_t, lm_pos, meta)
+        self.permon.log("local_ba_kfs", n_kf)
+        self.permon.log("local_ba_landmarks", n_lm)
+
+    def _solve_local_ba(self, blob: np.ndarray, spec):
+        """One windowed BA solve on the handler's device; returns device
+        tensors (kf_R, kf_t, lm_pos)."""
+        pl = self.cfg.pipeline
+        out, _ = ba.bundle_adjust_blob(
+            self._dev(blob), spec=spec, n_iter=pl.loba_num_iter,
+            pose_prior=pl.loba_pose_prior, accept_gate=False)
+        return out.kf_R, out.kf_t, out.lm_pos
 
     # ------------------------------------------------------------------
     def _occupancy_inputs(self, frame: FrameState):
@@ -595,7 +667,8 @@ class FrameHandlerMono:
         occ_uv, occ_ok = self._occupancy_inputs(frame)
         return _kf_detect_program(
             frame.pyr, self._dev(occ_uv), self._dev(occ_ok),
-            use_ls=pl.has_ls, n_pyr=pl.n_pyr_levels,
+            use_pt=pl.has_pt, use_ls=pl.has_ls,
+            use_edgelets=pl.use_edgelets and pl.has_pt, n_pyr=pl.n_pyr_levels,
             n_pyr_segs=pl.n_pyr_levels_segs, cell_size=pl.grid_size,
             score_threshold=pl.triang_min_corner_score,
             mag_threshold=pl.edgelet_grad_thresh,
@@ -614,18 +687,20 @@ class FrameHandlerMono:
 
     def _complete_seed_init(self, kf_slot, d_mean, d_min, grid, segs,
                             occupied, egrid):
-        """New point and edgelet seeds in free cells; new line seeds from
+        """New point seeds in free cells (corners, then edgelets in the cells
+        the corners leave empty, when egrid is given); new line seeds from
         the host-deduplicated segment candidates."""
         valid = grid.valid & ~occupied
         uv = grid.uv[valid]
         lvl = grid.level[valid]
         typ = np.zeros(len(uv), np.int32)
         gdir = np.zeros((len(uv), 2), np.float32)
-        e_ok = egrid.valid & ~occupied & ~grid.valid
-        uv = np.concatenate([uv, egrid.uv[e_ok]], 0)
-        lvl = np.concatenate([lvl, egrid.level[e_ok]], 0)
-        typ = np.concatenate([typ, np.ones(int(e_ok.sum()), np.int32)])
-        gdir = np.concatenate([gdir, egrid.grad_dir[e_ok]], 0)
+        if egrid is not None:
+            e_ok = egrid.valid & ~occupied & ~grid.valid
+            uv = np.concatenate([uv, egrid.uv[e_ok]], 0)
+            lvl = np.concatenate([lvl, egrid.level[e_ok]], 0)
+            typ = np.concatenate([typ, np.ones(int(e_ok.sum()), np.int32)])
+            gdir = np.concatenate([gdir, egrid.grad_dir[e_ok]], 0)
         f = self._np_unproject(uv) if len(uv) else np.zeros((0, 3), np.float32)
         mu, sigma2, z_range = df.seed_init_params(d_mean, d_min)
         self._install_point_seeds(kf_slot, uv, f, lvl, typ, gdir, mu, sigma2,

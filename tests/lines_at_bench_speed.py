@@ -2,14 +2,19 @@
 on the CPU, on identical frames of the bench.py plane sequence (752x480,
 fx = fy = 460, `make_scene(default_rng(3), size=2048, texel_size=0.003)`,
 ss = 2), with `default_config()` and lines on (has_ls=True, init_ls=True,
-loba_enabled=False, pipelined=False). The port gets JAX's bootstrap RANSAC
-draws, as in tests/test_torch_pipeline.py, so the two runs can be compared
-frame by frame.
+pipelined=False; local BA off unless `--ba`). The port gets JAX's bootstrap
+RANSAC draws, as in tests/test_torch_pipeline.py, so the two runs can be
+compared frame by frame.
 
     python tests/lines_at_bench_speed.py --frames 40 --step 0.03
+    python tests/lines_at_bench_speed.py --frames 28 --step 0.02 --ba \
+        --no-pt --n-rects 1680 --n-blobs 160
 
 `--step` is the sideways travel per frame in metres (bench.py: 0.03;
-chip_smoke.py's lines run: 0.015). Prints one line per frame for each
+chip_smoke.py's lines run: 0.015, its line-only run: 0.02). `--ba` turns local BA on (the config's
+default), `--no-pt` runs line-only mode (has_pt=False), and `--n-rects` /
+`--n-blobs` set the scene texture's rectangle and blob counts (the second
+command is chip_smoke.py's line-only run). Prints one line per frame for each
 package (stage, point matches, segment matches, keyframe, live line seeds,
 line landmarks made so far) and a JSON summary as the last line: the first
 DEFAULT frame, line landmarks made from converged seeds (and the frame of
@@ -54,10 +59,10 @@ def jax_ransac_draws(n_valid, n_hyp):
                                          0, n_valid))
 
 
-def frames(n, step):
+def frames(n, step, **tex_kw):
     cam = PinholeCamera.create(W, H, 460.0, 460.0, W / 2, H / 2)
     scene = synthetic.make_scene(np.random.default_rng(3), size=2048,
-                                 texel_size=0.003)
+                                 texel_size=0.003, **tex_kw)
     imgs, ts = [], []
     for i in range(n):
         ang = 0.002 * i
@@ -120,19 +125,26 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--step", type=float, default=0.03)
+    ap.add_argument("--ba", action="store_true", help="local BA on")
+    ap.add_argument("--no-pt", action="store_true", help="line-only mode")
+    ap.add_argument("--n-rects", type=int, default=None)
+    ap.add_argument("--n-blobs", type=int, default=None)
     args = ap.parse_args()
-    cam, imgs, gt = frames(args.frames, args.step)
+    tex_kw = {k: v for k, v in (("n_rects", args.n_rects),
+                                ("n_blobs", args.n_blobs)) if v is not None}
+    cam, imgs, gt = frames(args.frames, args.step, **tex_kw)
     cfg = default_config()
     cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, has_ls=True, init_ls=True, loba_enabled=False,
-        pipelined=False))
+        cfg.pipeline, has_ls=True, init_ls=True, loba_enabled=args.ba,
+        has_pt=not args.no_pt, pipelined=False))
     j = run("jax", jfh.FrameHandlerMono(cam, cfg), jstate.MapState, imgs, gt)
     tvo = tfh.FrameHandlerMono(
         TCam.create(W, H, 460.0, 460.0, W / 2, H / 2),
         convert.config_from_dict(dataclasses.asdict(cfg)), device="cpu",
         ransac_draws=jax_ransac_draws)
     t = run("port", tvo, tstate.MapState, imgs, gt)
-    print(json.dumps(dict(frames=args.frames, step=args.step, jax=j, port=t)),
+    print(json.dumps(dict(frames=args.frames, step=args.step, ba=args.ba,
+                          no_pt=args.no_pt, **tex_kw, jax=j, port=t)),
           flush=True)
 
 

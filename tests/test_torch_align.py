@@ -6,6 +6,7 @@ tests/test_torch_kernels.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from plsvo_torch import image as ti
@@ -167,6 +168,17 @@ def _find_match_inputs(rng):
 
 
 def test_find_match_direct_atlas_matches_jax(rng):
+    """With edgelets: corners 2-D and edgelets 1-D in the mixed loop."""
+    _check_find_match(rng, has_edgelets=True)
+
+
+def test_find_match_direct_atlas_align2d_matches_jax(rng):
+    """Without edgelets (use_edgelets=False, line-only mode): every row
+    refines 2-D through align2d_atlas's 18x18 windows."""
+    _check_find_match(rng, has_edgelets=False)
+
+
+def _check_find_match(rng, has_edgelets):
     p = _find_match_inputs(rng)
     N = p["N"]
     kf_j = ji.pack_pyramid_atlas_flat(
@@ -182,13 +194,13 @@ def test_find_match_direct_atlas_matches_jax(rng):
         jnp.asarray(p["Rcr"]), jnp.asarray(p["tcr"]), jnp.asarray(p["uv_init"]),
         jnp.asarray(p["valid"]), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
         jnp.asarray(p["ftype"]), jnp.asarray(p["gdir"]), max_level=2,
-        has_edgelets=True)
+        has_edgelets=has_edgelets)
     rt = tm.find_match_direct_atlas(
         kf_t, *cur_t, torch.zeros(N, dtype=torch.long),
         *[T(p[k]) for k in names], torch.zeros(N, dtype=torch.long),
         T(p["Rcr"]), T(p["tcr"]), T(p["uv_init"]), T(p["valid"]),
         FX, FY, CX, CY, T(p["ftype"]), T(p["gdir"]), max_level=2,
-        has_edgelets=True)
+        has_edgelets=has_edgelets)
     ok = np.asarray(rj.ok)
     np.testing.assert_array_equal(rt.ok.numpy(), ok)
     assert ok.sum() > 0.5 * p["valid"].sum()
@@ -231,7 +243,8 @@ def _world(rng, n_pts=64):
     return pts
 
 
-def test_optimize_pose_matches_jax(rng):
+@pytest.mark.parametrize("n_iter_ref", [0, 3])
+def test_optimize_pose_matches_jax(rng, n_iter_ref):
     pts = _world(rng)
     n = len(pts)
     xi = np.asarray([0.05, -0.03, 0.02, 0.01, -0.02, 0.015], np.float32)
@@ -256,8 +269,8 @@ def test_optimize_pose_matches_jax(rng):
         torch.zeros(M, dtype=torch.int32), T(z3), T(z3),
         torch.zeros(M, dtype=torch.bool))
     rj = jpo.optimize_pose(inp_j, jnp.asarray(R0), jnp.asarray(t0),
-                           jnp.asarray(250.0))
-    rt = tpo.optimize_pose(inp_t, T(R0), T(t0), 250.0)
+                           jnp.asarray(250.0), n_iter_ref=n_iter_ref)
+    rt = tpo.optimize_pose(inp_t, T(R0), T(t0), 250.0, n_iter_ref=n_iter_ref)
     np.testing.assert_allclose(rt.R.numpy(), np.asarray(rj.R), atol=1e-5)
     np.testing.assert_allclose(rt.t.numpy(), np.asarray(rj.t), atol=1e-5)
     np.testing.assert_array_equal(rt.pt_inlier.numpy(), np.asarray(rj.pt_inlier))

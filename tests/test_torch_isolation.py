@@ -34,9 +34,8 @@ scene = synthetic.make_scene(np.random.default_rng(7), size=1024,
                              texel_size=0.004)
 cfg = fast_config()
 points = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-    cfg.pipeline, has_ls=False, init_ls=False, loba_enabled=False))
-lines = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-    cfg.pipeline, loba_enabled=False))
+    cfg.pipeline, has_ls=False, init_ls=False))
+lines = cfg
 # frame 6 of the golden sequence of tests/test_pipeline.py: enough corners
 # for the first keyframe
 ang = 0.018
@@ -132,30 +131,73 @@ def _slice_config(make, **override):
 
     cfg = make()
     return dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, **dict(dict(loba_enabled=False, pipelined=False),
-                             **override)))
+        cfg.pipeline, **override))
+
+
+@pytest.fixture(scope="module")
+def first_frame():
+    """Frame 6 of the golden sequence of tests/test_pipeline.py, rendered
+    by the port on the CPU."""
+    import numpy as np
+
+    from plsvo_torch.utils import synthetic
+
+    torch.set_num_threads(1)
+    cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
+    scene = synthetic.make_scene(np.random.default_rng(7), size=1024,
+                                 texel_size=0.004)
+    ang = 0.018
+    R = np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                    [-np.sin(ang), 0, np.cos(ang)]], np.float32)
+    t = np.asarray([0.132, 0.006 * np.sin(1.8), -2.0], np.float32)
+    return cam, synthetic.render_aa(scene, cam, R, t, device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [
     pytest.param("loba_enabled", True, id="loba_enabled"),
-    pytest.param("pipelined", True, id="pipelined"),
     pytest.param("has_pt", False, id="has_pt"),
     pytest.param("use_edgelets", False, id="use_edgelets"),
     pytest.param("has_refinement", True, id="has_refinement")])
-def test_unported_config_raises(field, value):
+def test_sync_option_tracks_first_frame(first_frame, field, value):
+    """Each sync-path option the port covers constructs on the CPU and
+    takes the first frame (line-only mode from segment targets alone)."""
     cfg = _slice_config(fast_config, **{field: value})
-    cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
-    with pytest.raises(NotImplementedError, match=field):
-        frame_handler.FrameHandlerMono(cam, cfg, device="cpu")
+    cam, img = first_frame
+    vo = frame_handler.FrameHandlerMono(cam, cfg, device="cpu")
+    r = vo.add_image(img, 0.0)
+    assert (r.stage, r.quality) == ("first", "good"), r
+    assert r.n_pt_matches > 0
+
+
+class _AtanCamera:
+    """A camera model other than the pinhole (stand-in for ATAN)."""
+
+    width, height = 320, 240
+    fx = fy = 250.0
+    cx, cy = 160.0, 120.0
+
+
+@pytest.mark.parametrize("make_cam,match", [
+    pytest.param(lambda: PinholeCamera.create(320, 240, 250.0, 250.0, 160.0,
+                                              120.0), "pipelined",
+                 id="pipelined"),
+    pytest.param(_AtanCamera, "camera model", id="non_pinhole_camera")])
+def test_unported_config_raises(make_cam, match):
+    """The pipelined mode and camera models other than the pinhole are
+    not ported."""
+    cfg = _slice_config(fast_config, pipelined=match == "pipelined")
+    with pytest.raises(NotImplementedError, match=match):
+        frame_handler.FrameHandlerMono(make_cam(), cfg, device="cpu")
 
 
 @pytest.mark.parametrize("make", [fast_config, default_config],
                          ids=["fast_config", "default_config"])
 def test_lines_config_constructs_on_cpu(make):
-    """Points + lines (has_ls, init_ls: the configs' defaults) in the sync
-    path without local BA is the ported slice."""
-    cfg = _slice_config(make)
+    """Both configs unmodified (points + lines, local BA, sync) construct
+    on the CPU."""
+    cfg = make()
     assert cfg.pipeline.has_ls and cfg.pipeline.init_ls
+    assert cfg.pipeline.loba_enabled and not cfg.pipeline.pipelined
     cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
     vo = frame_handler.FrameHandlerMono(cam, cfg, device="cpu")
     assert vo.ln_seeds.mu_s.shape == (cfg.caps.max_seed_segs,)

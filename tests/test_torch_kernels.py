@@ -214,14 +214,15 @@ def test_detect_segments_card_matches_cpu(cuda):
 
 def _golden_run(device, lines):
     """The golden 320x240 sequence of tests/test_pipeline.py rendered by the
-    port, through the slice config."""
+    port: points only without local BA (tests/test_torch_pipeline.py's
+    config), or `fast_config()` unmodified with lines and local BA
+    (tests/test_torch_pipeline_lines.py's)."""
     cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
     scene = synthetic.make_scene(np.random.default_rng(7), size=1024,
                                  texel_size=0.004)
     cfg = fast_config()
     cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, has_ls=lines, init_ls=lines, loba_enabled=False,
-        pipelined=False))
+        cfg.pipeline, has_ls=lines, init_ls=lines, loba_enabled=lines))
     vo = tfh.FrameHandlerMono(cam, cfg, device=device)
     res, gt = [], []
     for i in range(28):
@@ -252,8 +253,8 @@ def test_slice_tracks_on_the_card(cuda):
 
 @pytest.mark.cuda
 def test_lines_slice_tracks_on_the_card(cuda):
-    """Points + lines on the card: the golden bound of the CPU run of
-    tests/test_torch_pipeline_lines.py, and line landmarks made."""
+    """Points + lines + local BA on the card: the golden bound of the CPU
+    run of tests/test_torch_pipeline_lines.py, and line landmarks made."""
     vo, res, ate = _golden_run(cuda, lines=True)
     assert ate < 0.006, ate
     assert (vo._lnseed_install_frame >= 0).any()
