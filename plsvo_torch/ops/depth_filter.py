@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from plsvo_torch import lie
@@ -492,10 +493,18 @@ def scatter_new_point_seeds(full: PointSeeds, rows, mask, kf_idx, uv, f, level,
         alive=scatter_drop(full.alive, r, mask))
 
 
+def _f32_scalars(scalars):
+    """(mu, sigma2, z_range, batch_id) rounded through f32."""
+    return tuple(float(v) for v in np.asarray(scalars, np.float32))
+
+
 def scatter_new_point_seeds_blob(full: PointSeeds, blob: torch.Tensor, *,
-                                 B: int) -> PointSeeds:
+                                 B: int, scalars) -> PointSeeds:
     """scatter_new_point_seeds from one packed f32 blob: rows(B) mask(B)
-    kf(B) uv(B,2) f(B,3) level(B) mu sigma2 z_range batch_id."""
+    kf(B) uv(B,2) f(B,3) level(B). scalars = (mu, sigma2, z_range,
+    batch_id), host values rounded through f32 as the JAX package's blob
+    tail rounds them; taking them from the host spares the install a
+    device round trip."""
     o = 0
 
     def take(n):
@@ -510,9 +519,7 @@ def scatter_new_point_seeds_blob(full: PointSeeds, blob: torch.Tensor, *,
     uv = take(2 * B).reshape(B, 2)
     f = take(3 * B).reshape(B, 3)
     level = take(B).to(torch.int32)
-    tail = take(4)
-    # the scalars are f32 in the blob, as the JAX package reads them
-    mu, sigma2, z_range, batch_id = (float(v) for v in tail.cpu())
+    mu, sigma2, z_range, batch_id = _f32_scalars(scalars)
     return scatter_new_point_seeds(full, rows, mask, kf_idx, uv, f, level, mu,
                                    sigma2, z_range, int(batch_id))
 
@@ -549,10 +556,10 @@ def scatter_new_line_seeds(full: LineSeeds, rows, mask, kf_idx, s_uv, e_uv, sf,
 
 
 def scatter_new_line_seeds_blob(full: LineSeeds, blob: torch.Tensor, *,
-                                B: int) -> LineSeeds:
+                                B: int, scalars) -> LineSeeds:
     """scatter_new_line_seeds from one packed f32 blob: rows(B) mask(B)
-    kf(B) s_uv(B,2) e_uv(B,2) sf(B,3) ef(B,3) level(B) mu sigma2 z_range
-    batch_id."""
+    kf(B) s_uv(B,2) e_uv(B,2) sf(B,3) ef(B,3) level(B); scalars as in
+    scatter_new_point_seeds_blob."""
     o = 0
 
     def take(n):
@@ -569,6 +576,6 @@ def scatter_new_line_seeds_blob(full: LineSeeds, blob: torch.Tensor, *,
     sf = take(3 * B).reshape(B, 3)
     ef = take(3 * B).reshape(B, 3)
     level = take(B).to(torch.int32)
-    mu, sigma2, z_range, batch_id = (float(v) for v in take(4).cpu())
+    mu, sigma2, z_range, batch_id = _f32_scalars(scalars)
     return scatter_new_line_seeds(full, rows, mask, kf_idx, s_uv, e_uv, sf, ef,
                                   level, mu, sigma2, z_range, int(batch_id))

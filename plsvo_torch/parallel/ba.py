@@ -525,10 +525,12 @@ def problem_from_window(map_state, cfg, core_slots, pad_bucket: int = 256):
 
 
 def write_back_window(map_state, kf_R, kf_t, lm_pos, meta):
-    """Guarded write-back of windowed BA results: only keyframes and
-    landmark rows that still denote the same entity (same keyframe frame
-    id; alive with an unchanged anchor) are written. Clears the map's
-    device copies. Returns (keyframes written, landmarks written)."""
+    """Guarded write-back of windowed BA results (in pipelined mode fetched
+    a drain window after the solve): only keyframes and landmark rows that
+    still denote the same entity (same keyframe frame id; alive with an
+    unchanged anchor) are written. Clears the map's cached device copies
+    and queues the written rows for the carry (keyframe poses ride every
+    delta blob). Returns (keyframes written, landmarks written)."""
     m = map_state
     kf_R, kf_t, lm_pos = (_host(a) for a in (kf_R, kf_t, lm_pos))
     ok_kf = [k for k in meta["kf_free"]
@@ -547,6 +549,8 @@ def write_back_window(map_state, kf_R, kf_t, lm_pos, meta):
         m.ln_spos[lr[ok_ln]] = lm_pos[npts:npts + nln][ok_ln]
         m.ln_epos[lr[ok_ln]] = lm_pos[npts + nln:npts + 2 * nln][ok_ln]
     m.invalidate()
+    m.mark_mt_dirty("pt", pr[ok_pt])
+    m.mark_mt_dirty("ln", lr[ok_ln])
     return len(ok_kf), int(ok_pt.sum()) + int(ok_ln.sum())
 
 
@@ -563,3 +567,5 @@ def write_back_to_map(map_state, prob: BAProblem, meta):
     m.ln_spos[meta["ln_rows"]] = np_pos[npts: npts + nln]
     m.ln_epos[meta["ln_rows"]] = np_pos[npts + nln: npts + 2 * nln]
     m.invalidate()
+    m.mark_mt_dirty("pt", meta["pt_rows"])
+    m.mark_mt_dirty("ln", meta["ln_rows"])

@@ -1,6 +1,6 @@
-"""FrameHandlerMono: the tracking pipeline stage machine (sync path).
+"""FrameHandlerMono: the tracking pipeline stage machine.
 
-Port of the synchronous path of `plsvo_tpu/pipeline/frame_handler.py`:
+Port of `plsvo_tpu/pipeline/frame_handler.py`:
 
   add_image
     FIRST   -> detect features, first keyframe
@@ -11,11 +11,19 @@ Port of the synchronous path of `plsvo_tpu/pipeline/frame_handler.py`:
                local BA
     RELOC   -> align against the closest keyframe
 
-The port covers the whole sync path (pipelined=False) on a pinhole camera:
-points, edgelets and line segments, line-only mode (has_pt=False),
-use_edgelets=False, the pose refinement phase and local BA.
-pipelined=True and other camera models raise NotImplementedError. Host
-bookkeeping is the JAX package's numpy code, so the host decisions match.
+Both execution modes run on a pinhole camera, with points, edgelets and
+line segments, line-only mode (has_pt=False), use_edgelets=False, the pose
+refinement phase and local BA. In pipelined mode (pipeline.pipelined=True)
+add_image dispatches frame i before it fetches earlier frames: a
+window of pipeline_depth frames is fetched when full and bookkept when
+the next one is submitted, so results come back up to 2 x pipeline_depth
+calls late (None while the pipeline fills), and flush() drains the rest
+at the end of a sequence. The map
+lives on the device as a carry updated by one host delta blob per frame,
+and a keyframe's seed detection and local BA are dispatched at the
+keyframe and fetched with the next drain window. Other camera models
+raise NotImplementedError. Host bookkeeping is the JAX package's numpy
+code, so the host decisions match.
 """
 from __future__ import annotations
 
@@ -116,9 +124,6 @@ def _check_supported(cam, cfg: Config):
     if not isinstance(cam, PinholeCamera):
         raise NotImplementedError(f"camera model {type(cam).__name__} is not "
                                   "ported (only PinholeCamera)")
-    if cfg.pipeline.pipelined:
-        raise NotImplementedError("config pipeline.pipelined=True is not "
-                                  "ported (only the sync path)")
 
 
 class FrameHandlerMono:
@@ -169,31 +174,45 @@ class FrameHandlerMono:
         return (line / np.maximum(n, 1e-12)).astype(np.float32)
 
     def _dev(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+        """Upload a host array; on the card through pinned memory without
+        waiting (a copy from pageable memory waits for the device queue)."""
+        t = torch.as_tensor(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     # ------------------------------------------------------------------
-    def add_image(self, img, timestamp: float) -> FrameResult:
+    def add_image(self, img, timestamp: float) -> Optional[FrameResult]:
+        """Track one frame. In pipelined mode the result returned belongs
+        to an earlier frame, or is None while the pipeline fills."""
         self.permon.new_frame(self.frame_id)
         t_tot = time.perf_counter()
         with self.permon.timer("pyramid_creation"):
-            img_dev = (img if torch.is_tensor(img) else
-                       torch.tensor(np.asarray(img))).to(self.device)
-            pyr = build_pyramid(img_dev.to(torch.float32), self.n_levels)
+            a = img if torch.is_tensor(img) else torch.tensor(np.asarray(img))
+            if a.dtype not in (torch.uint8, torch.float32):
+                a = a.to(torch.float32)
+            # uint8 stays uint8 for the upload (a quarter of the bytes)
+            img_dev = (self._dev(a.numpy()) if a.device.type == "cpu"
+                       else a.to(self.device))
+            # a DEFAULT frame's pyramid is built where it is tracked
+            pyr = (None if self.stage == STAGE_DEFAULT
+                   else build_pyramid(img_dev, self.n_levels))
         if self.stage == STAGE_FIRST:
             res = self._process_first(pyr, timestamp)
         elif self.stage == STAGE_SECOND:
             res = self._process_second(pyr, timestamp)
         elif self.stage == STAGE_DEFAULT:
-            res = self._process_frame(pyr, timestamp)
+            res = self._process_frame(img_dev, timestamp)
         elif self.stage == STAGE_RELOCALIZING:
-            res = self._relocalize(pyr, timestamp)
+            res = self._relocalize(img_dev, pyr, timestamp)
         else:
             raise RuntimeError(f"stage {self.stage}")
         self.frame_id += 1
         self.permon.timers["tot_time"] = time.perf_counter() - t_tot
-        self.results.append(res)
-        self.permon.log("img_align_n_tracked", res.n_pt_matches)
-        self.permon.log("n_seg_tracked", res.n_seg_matches)
+        if res is not None:
+            self.results.append(res)
+            self.permon.log("img_align_n_tracked", res.n_pt_matches)
+            self.permon.log("n_seg_tracked", res.n_seg_matches)
         return res
 
     # ------------------------------------------------------------------
@@ -422,21 +441,173 @@ class FrameHandlerMono:
                 self.pt_seeds, self.ln_seeds, self.batch_counter,
                 self._fx, self._fy, self._cx, self._cy)
 
-    def _process_frame(self, pyr, ts) -> FrameResult:
+    def _process_frame(self, img, ts, pyr=None) -> Optional[FrameResult]:
+        """Track a DEFAULT-stage frame from its device image (and its
+        pyramid, where the caller built one): the one place that picks
+        the sync step or, in pipelined mode, the dispatch."""
+        if self.cfg.pipeline.pipelined:
+            return self._process_frame_pipelined(img, ts)
+        if pyr is None:
+            with self.permon.timer("pyramid_creation"):
+                pyr = build_pyramid(img, self.n_levels)
         last = self.last_frame
         frame = FrameState.empty(self.cfg, self.frame_id, ts, pyr,
                                  last.R_f_w.copy(), last.t_f_w.copy())
+        # the sync step uploads the whole mirror: no delta is needed
+        self.map.mt_mark_clean()
         with self.permon.timer("device_step"):
             step = fused.track_frame_step(*self._step_inputs(pyr),
                                           **self._step_kwargs())
         self.pt_seeds = step.pt_seeds
         self.ln_seeds = step.ln_seeds
         with self.permon.timer("fetch"):
-            res, pt_conv, ln_conv = fused.fetch((step.fused, step.pt_conv,
-                                                 step.ln_conv))
+            res, pt_conv, ln_conv = fused.fetch((fused.fetch_view(step.fused),
+                                                 step.pt_conv, step.ln_conv))
         # converged seeds become landmarks visible from the next frame
         self._apply_harvest(pt_conv, ln_conv, result_frame_id=frame.frame_id)
         return self._post_fused(frame, res)
+
+    # -- pipelined mode ------------------------------------------------
+    def _process_frame_pipelined(self, img, ts) -> Optional[FrameResult]:
+        """Dispatch frame i before fetching earlier frames' results, so host
+        bookkeeping overlaps device work; returns the oldest finished
+        result not yet returned, or None while the pipeline fills. The
+        first step of a chain starts from the host tables of the last
+        finished frame and a full upload of the map; every later step takes
+        the raw image, the previous step's NextFrameInputs and map carry,
+        and one delta blob."""
+        pl = self.cfg.pipeline
+        m = self.map
+        if m.mt_needs_resync(self._mt_ne) and self._pipe_q:
+            # a change the deltas cannot carry: finish every frame in
+            # flight, then restart the chain from a full upload
+            self._initiate_drain(keep=0)
+            while self._fetch_q:
+                self._complete_drains(force=True)
+        kwargs = self._step_kwargs()
+        atlas = m.kf_atlas_flat(pl.n_pyr_levels)
+        cam = (self._fx, self._fy, self._cx, self._cy)
+        with self.permon.timer("device_step"):
+            if not self._pipe_q:
+                pyr = build_pyramid(img, self.n_levels)
+                # the full upload is the carry's resync: it holds every
+                # queued delta
+                m.mt_mark_clean()
+                step = fused.track_frame_step(
+                    self.last_frame.pyr, pyr, atlas,
+                    self._last_blob(self.last_frame),
+                    fused.map_tables_from_state(m), self.pt_seeds,
+                    self.ln_seeds, self.batch_counter, *cam, emit_next=True,
+                    frame_id=self.frame_id, **kwargs)
+            else:
+                del kwargs["specs"]
+                delta = self._dev(m.pack_mt_deltas(
+                    fused.MT_DELTA_DP, fused.MT_DELTA_DL, fused.MT_DELTA_OP,
+                    fused.MT_DELTA_OL, self._mt_ne))
+                step = fused.track_frame_step_tables(
+                    img, atlas, self._pipe_q[-1][1].next,
+                    self._mt_carry, self.pt_seeds, self.ln_seeds,
+                    self.batch_counter, *cam, n_levels=self.n_levels,
+                    frame_id=self.frame_id, mt_delta=delta,
+                    evict_width=self._mt_ne, **kwargs)
+        frame = FrameState.empty(self.cfg, self.frame_id, ts,
+                                 list(step.next.pyr),
+                                 self.last_frame.R_f_w.copy(),
+                                 self.last_frame.t_f_w.copy())
+        self._mt_carry = step.mt
+        self.pt_seeds = step.pt_seeds
+        self.ln_seeds = step.ln_seeds
+        self._pipe_q.append((frame, step))
+        self.last_frame = frame
+        if len(self._pipe_q) > max(1, pl.pipeline_depth):
+            self._initiate_drain(keep=1)
+        # bookkeep a fetched window only once the next one is submitted
+        self._complete_drains(force=len(self._fetch_q) > 1)
+        return self._ready.pop(0) if self._ready else None
+
+    def sync_carry(self):
+        """Apply every queued map delta to the device carry now (as the
+        next steps would) and return it: after flush() it equals
+        fused.map_tables_upload(self.map). Changes that the deltas cannot
+        carry (MapState.transform) rebuild it from a full upload."""
+        m = self.map
+        if m.mt_needs_resync(self._mt_ne):
+            self._mt_carry = fused.map_tables_from_state(m)
+            m.mt_mark_clean()
+        while m.mt_dirty_pending():
+            blob = self._dev(m.pack_mt_deltas(
+                fused.MT_DELTA_DP, fused.MT_DELTA_DL, fused.MT_DELTA_OP,
+                fused.MT_DELTA_OL, self._mt_ne))
+            self._mt_carry = fused.apply_mt_deltas(self._mt_carry, blob,
+                                                   NE=self._mt_ne)
+        return self._mt_carry
+
+    def _initiate_drain(self, keep: int):
+        """Stage 1 of a drain: all but the newest `keep` frames in flight,
+        the pending keyframe detections and up to two pending local BA
+        results (as the JAX package folds them, so write-backs land on the
+        same frames) go into ONE flat vector, whose copy to the host starts
+        now; _complete_drains bookkeeps it a window later."""
+        n = len(self._pipe_q) - keep
+        if n <= 0:
+            return
+        take, self._pipe_q = self._pipe_q[:n], self._pipe_q[n:]
+        pending_init, self._pending_seed_init = self._pending_seed_init, []
+        pending_ba, self._pending_ba = self._pending_ba[:2], self._pending_ba[2:]
+        with self.permon.timer("fetch"):
+            flat, meta = fused.flatpack((
+                [(fused.fetch_view(s.fused), s.pt_conv, s.ln_conv)
+                 for _, s in take],
+                [h for *_, h in pending_init], [h for h, _ in pending_ba]))
+            handle = fused.submit_fetch(flat)
+        self._fetch_q.append(([f for f, _ in take], pending_init, pending_ba,
+                              handle, meta))
+
+    def _complete_drains(self, force: bool):
+        """Stage 2 of a drain: bookkeep the oldest fetched window when
+        forced, which is exactly when the next window has been submitted.
+        Deterministic on purpose: finishing windows whenever their copy
+        happens to be done would make the frame at which map updates land
+        depend on the wall clock. A frame that fails drops its successors
+        in flight; their windows' local BA results and seed detections are
+        queued again for the next drain (write_back_window and the seed
+        harvest guard against slots and rows that changed meanwhile)."""
+        while self._fetch_q and force:
+            frames, pending_init, pending_ba, handle, meta = self._fetch_q.pop(0)
+            newest_frame = self.last_frame
+            with self.permon.timer("fetch"):
+                got, init_got, ba_got = fused.flatunpack(handle.result(), meta)
+            for (_, bmeta), (kf_R, kf_t, lm_pos) in zip(pending_ba, ba_got):
+                self._write_back_ba(kf_R, kf_t, lm_pos, bmeta)
+            for (kf_slot, dm, dmin, _), fetched in zip(pending_init, init_got):
+                self._complete_seed_init(kf_slot, dm, dmin, *fetched)
+            for frame, (res, pt_c, ln_c) in zip(frames, got):
+                if self.stage == STAGE_RELOCALIZING:
+                    break  # the successors of a failed frame are dropped
+                self._apply_harvest(pt_c, ln_c, result_frame_id=frame.frame_id)
+                self._ready.append(self._post_fused(frame, res))
+            if self.stage == STAGE_RELOCALIZING:
+                for _, q_init, q_ba, _, _ in self._fetch_q:
+                    self._pending_ba.extend(q_ba)
+                    self._pending_seed_init.extend(q_init)
+                self._pipe_q.clear()
+                self._fetch_q.clear()
+                return
+            # _post_fused points last_frame at each finished frame; the
+            # newest dispatched frame stays the alignment reference
+            self.last_frame = newest_frame
+            force = False
+
+    def flush(self) -> List[FrameResult]:
+        """Finish every frame in flight (call at the end of a sequence);
+        returns the remaining results in frame order."""
+        if self.cfg.pipeline.pipelined and (self._pipe_q or self._fetch_q):
+            self._initiate_drain(keep=0)
+            while self._fetch_q:
+                self._complete_drains(force=True)
+        self._complete_pending_ba()
+        out, self._ready = self._ready, []
+        return out
 
     def _post_fused(self, frame: FrameState, res) -> FrameResult:
         """Host bookkeeping after the device step: counters, deletion
@@ -445,8 +616,10 @@ class FrameHandlerMono:
         last = self.last_frame
         m = self.map
         # lines that the photometric gate of the alignment dropped lose
-        # their landmark link
-        last.seg_lm[last.seg_valid & ~res.align_seg_alive] = -1
+        # their landmark link (host width: pipelined align tables are as
+        # wide as the reprojection's output)
+        last.seg_lm[last.seg_valid
+                    & ~res.align_seg_alive[:len(last.seg_valid)]] = -1
         pt = res.pt
         lm = pt.lm_idx
         matched = pt.matched
@@ -461,6 +634,7 @@ class FrameHandlerMono:
         m.pt_status[promote] = ST_GOOD
         if (dead | promote).any():
             m.invalidate("pt_status")
+            m.mark_mt_dirty("pt", np.where(dead | promote)[0])
         if dead.any():
             m.kf_pt_lm[np.isin(m.kf_pt_lm, np.where(dead)[0])] = -1
 
@@ -491,6 +665,7 @@ class FrameHandlerMono:
             m.ln_status[lprom] = ST_GOOD
             if (ldead | lprom).any():
                 m.invalidate("ln_status")
+                m.mark_mt_dirty("ln", np.where(ldead | lprom)[0])
             if ldead.any():
                 m.kf_seg_lm[np.isin(m.kf_seg_lm, np.where(ldead)[0])] = -1
             skeep = smat & res.seg_inlier & (m.ln_status[slm] != ST_DELETED)
@@ -524,12 +699,16 @@ class FrameHandlerMono:
         frame.t_f_w = res.t_f_w.astype(np.float32)
         frame.cov = res.cov
 
+        # structure-opt refinements: the carry took them on the device; the
+        # rows are queued again all the same, because a delta packed for
+        # another change before this fetch carried the older position
         vsel = res.st_pt_valid
         if vsel.any():
             rws = res.st_pt_lm[vsel]
             m.pt_pos[rws] = res.st_pt_pos[vsel]
             m.pt_last_optim[rws] = frame.frame_id
             m.invalidate("pt_pos")
+            m.mark_mt_dirty("pt", rws)
         lsel = res.st_ln_valid
         if lsel.any():
             rws = res.st_ln_lm[lsel]
@@ -537,6 +716,7 @@ class FrameHandlerMono:
             m.ln_epos[rws] = res.st_ln_epos[lsel]
             m.ln_last_optim[rws] = frame.frame_id
             m.invalidate("ln_spos", "ln_epos")
+            m.mark_mt_dirty("ln", rws)
 
         quality = self._tracking_quality(n_pt, n_seg)
         if quality == QUALITY_INSUFFICIENT:
@@ -610,7 +790,14 @@ class FrameHandlerMono:
             m.add_keyframe(frame)
         self.batch_counter += 1
         with self.permon.timer("kf_init_seeds"):
-            self._init_seeds(frame, d_mean, max(d_min * 0.1, 1e-3))
+            if self.cfg.pipeline.pipelined and d_mean is not None:
+                # the detection's fetch rides the next drain window
+                kf_slot = int(np.where(m.kf_frame_id == frame.frame_id)[0][0])
+                self._pending_seed_init.append(
+                    (kf_slot, d_mean, max(d_min * 0.1, 1e-3),
+                     self._queue_or_dispatch_detection(frame)))
+            else:
+                self._init_seeds(frame, d_mean, max(d_min * 0.1, 1e-3))
         if self.cfg.pipeline.loba_enabled:
             with self.permon.timer("local_ba"):
                 self._dispatch_local_ba(frame)
@@ -618,9 +805,9 @@ class FrameHandlerMono:
     def _dispatch_local_ba(self, frame: FrameState):
         """Windowed BA at a keyframe: core = the new keyframe and its
         core_n_kfs closest FoV-overlapping keyframes, the other keyframes
-        fixed. One packed upload, the solve, one fetch, then the guarded
-        write-back, which drops every device copy of the map. Logs the
-        keyframes and landmarks written back."""
+        fixed. One packed upload and the solve; in sync mode one fetch and
+        the guarded write-back, in pipelined mode the result rides the next
+        drain window's fetch."""
         m = self.map
         kf_slot = int(np.where(m.kf_frame_id == frame.frame_id)[0][0])
         overl = sorted(m.overlap_kfs(frame.R_f_w, frame.t_f_w, self._fx,
@@ -634,10 +821,28 @@ class FrameHandlerMono:
         if meta["n_points"] + meta["n_lines"] == 0:
             return
         blob, spec = ba.problem_blob(prob)
-        kf_R, kf_t, lm_pos = fused.fetch(self._solve_local_ba(blob, spec))
-        n_kf, n_lm = ba.write_back_window(m, kf_R, kf_t, lm_pos, meta)
+        handles = self._solve_local_ba(blob, spec)
+        if self.cfg.pipeline.pipelined:
+            self._pending_ba.append((handles, meta))
+        else:
+            self._write_back_ba(*fused.fetch(handles), meta)
+
+    def _write_back_ba(self, kf_R, kf_t, lm_pos, meta):
+        """Guarded write-back of one fetched BA result; logs the keyframes
+        and landmarks written."""
+        n_kf, n_lm = ba.write_back_window(self.map, kf_R, kf_t, lm_pos, meta)
         self.permon.log("local_ba_kfs", n_kf)
         self.permon.log("local_ba_landmarks", n_lm)
+
+    def _complete_pending_ba(self):
+        """Write back the local BA results no drain window took (the end of
+        a sequence): one fetch for all of them."""
+        if not self._pending_ba:
+            return
+        pend, self._pending_ba = self._pending_ba, []
+        fetched = fused.fetch([h for h, _ in pend])
+        for (_, meta), (kf_R, kf_t, lm_pos) in zip(pend, fetched):
+            self._write_back_ba(kf_R, kf_t, lm_pos, meta)
 
     def _solve_local_ba(self, blob: np.ndarray, spec):
         """One windowed BA solve on the handler's device; returns device
@@ -661,6 +866,11 @@ class FrameHandlerMono:
         occ_uv[:n_occ] = parts[:n_occ]
         occ_ok[:n_occ] = True
         return occ_uv, occ_ok
+
+    def _queue_or_dispatch_detection(self, frame: FrameState):
+        """The deferred keyframe detection's dispatch point (a batched
+        handler collects the requests of several sequences here)."""
+        return self._dispatch_seed_detection(frame)
 
     def _dispatch_seed_detection(self, frame: FrameState):
         pl = self.cfg.pipeline
@@ -735,12 +945,11 @@ class FrameHandlerMono:
         fp[:k] = f[:k]
         lv = np.zeros(B, np.float32)
         lv[:k] = lvl[:k]
-        blob = np.concatenate([
-            rows, mask, np.full(B, kf_slot, np.float32), uvp.ravel(),
-            fp.ravel(), lv,
-            np.asarray([mu, sigma2, z_range, self.batch_counter], np.float32)])
+        blob = np.concatenate([rows, mask, np.full(B, kf_slot, np.float32),
+                               uvp.ravel(), fp.ravel(), lv])
         self.pt_seeds = df.scatter_new_point_seeds_blob(
-            self.pt_seeds, self._dev(blob), B=B)
+            self.pt_seeds, self._dev(blob), B=B,
+            scalars=(mu, sigma2, z_range, self.batch_counter))
 
     def _install_line_seeds(self, kf_slot, segs, mu, sigma2, z_range):
         sp = segs.sp[segs.valid]
@@ -772,10 +981,10 @@ class FrameHandlerMono:
             np.concatenate([sp[:k], z2]).ravel(),
             np.concatenate([ep[:k], z2]).ravel(),
             np.concatenate([sf, z3]).ravel(), np.concatenate([ef, z3]).ravel(),
-            np.zeros(B, np.float32),
-            np.asarray([mu, sigma2, z_range, self.batch_counter], np.float32)])
+            np.zeros(B, np.float32)])
         self.ln_seeds = df.scatter_new_line_seeds_blob(
-            self.ln_seeds, self._dev(blob), B=B)
+            self.ln_seeds, self._dev(blob), B=B,
+            scalars=(mu, sigma2, z_range, self.batch_counter))
 
     @staticmethod
     def _bucket(n: int, cap: int) -> int:
@@ -786,8 +995,13 @@ class FrameHandlerMono:
 
     def _apply_harvest(self, pt_conv, ln_conv, result_frame_id: int):
         """Converged seeds become CANDIDATE landmarks; the host alive
-        mirrors update from the same fetch. Rows installed after the step
-        was dispatched keep the mirror's value."""
+        mirrors update from the same fetch (bit-packed masks). Rows
+        installed at or after the frame of the step's dispatch keep the
+        mirror's value: their install happened after the step was
+        dispatched, even in the same add_image, where a drain installs a
+        keyframe's seeds after the newest step went out. (The JAX package
+        compares with a strict >, so there the newest step's mask marks
+        the fresh seeds dead.)"""
         if pt_conv is not None:
             self._harvest_points(pt_conv, result_frame_id)
         if ln_conv is not None:
@@ -795,10 +1009,10 @@ class FrameHandlerMono:
 
     def _harvest_points(self, pt_conv, result_frame_id: int):
         m = self.map
-        rows_c, depth_c, n_conv, alive_new, n_starved = pt_conv
+        rows_c, depth_c, n_conv, alive_w, n_starved = pt_conv
         cap = self.cfg.caps.max_seeds
-        alive_new = alive_new.copy()
-        stale = self._seed_install_frame > result_frame_id
+        alive_new = fused.unpack_bits16(alive_w, cap)
+        stale = self._seed_install_frame >= result_frame_id
         alive_new[stale] = self._seed_alive[stale]
         self._seed_alive[:] = alive_new
         pairs = [(int(r), float(d)) for r, d in zip(rows_c, depth_c) if r < cap]
@@ -821,10 +1035,10 @@ class FrameHandlerMono:
 
     def _harvest_lines(self, ln_conv, result_frame_id: int):
         m = self.map
-        rows_c, ds_c, de_c, n_conv, alive_new, n_starved = ln_conv
+        rows_c, ds_c, de_c, n_conv, alive_w, n_starved = ln_conv
         cap = self.cfg.caps.max_seed_segs
-        alive_new = alive_new.copy()
-        stale = self._lnseed_install_frame > result_frame_id
+        alive_new = fused.unpack_bits16(alive_w, cap)
+        stale = self._lnseed_install_frame >= result_frame_id
         alive_new[stale] = self._lnseed_alive[stale]
         self._lnseed_alive[:] = alive_new
         self.permon.log("seed_starved_ln", int(n_starved))
@@ -843,7 +1057,7 @@ class FrameHandlerMono:
                        status=ST_CANDIDATE)
 
     # ------------------------------------------------------------------
-    def _relocalize(self, pyr, ts) -> FrameResult:
+    def _relocalize(self, img, pyr, ts) -> FrameResult:
         """Align against the closest FoV-overlapping keyframe."""
         self.n_relocalizations += 1
         frame = FrameState.empty(self.cfg, self.frame_id, ts, pyr,
@@ -872,7 +1086,13 @@ class FrameHandlerMono:
             frame.t_f_w = (R_ck @ kf_frame.t_f_w + t_ck).astype(np.float32)
             self.last_frame = kf_frame
             self.stage = STAGE_DEFAULT
-            res = self._process_frame(pyr, ts)
+            res = self._process_frame(img, ts, pyr)
+            if res is None or res.frame_id != frame.frame_id:
+                # pipelined mode: the resumed frame's result comes with a
+                # later drain, as a DEFAULT result; what returns now is an
+                # earlier frame's, and keeps its stage (the JAX package
+                # relabels it as relocalizing)
+                return res
             return FrameResult(res.frame_id, STAGE_RELOCALIZING, res.quality,
                                res.n_pt_matches, res.n_seg_matches,
                                res.is_keyframe, res.R_f_w, res.t_f_w)
@@ -929,3 +1149,15 @@ class FrameHandlerMono:
             "ef": np.zeros((SL, 3), np.float32), "level": np.zeros(SL, np.int32)}
         self._lnseed_alive = np.zeros(SL, bool)
         self._lnseed_install_frame = np.full(SL, -1, np.int64)
+        # pipelined mode: the map carry, frames in flight [(FrameState,
+        # FullStepResult)], fetch windows in flight, finished results not
+        # yet returned, and keyframe detections and local BA results whose
+        # fetch waits for the next drain window
+        self._mt_carry = None
+        self._mt_ne = fused.mt_evict_width(caps.max_kfs,
+                                           self.cfg.pipeline.pipeline_depth)
+        self._pipe_q = []
+        self._fetch_q = []
+        self._ready = []
+        self._pending_seed_init = []
+        self._pending_ba = []

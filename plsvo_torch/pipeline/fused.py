@@ -2,14 +2,20 @@
 optimization -> structure optimization -> depth-filter seed update, with
 one packed result fetch per frame.
 
-Port of the sync path of `plsvo_tpu/pipeline/fused.py`. With has_ls the
-reprojection refines points and both segment endpoints in one batch, pose
-optimization takes the segment residuals too, structure optimization
-refines the selected lines' endpoints with the points, and the seed update
-runs point seeds and both line-seed endpoints through one chain. Without
-it the segment tables flow through with every row invalid, so row spaces
-match the JAX package either way. The fetch is one device-side
-concatenation and one `.cpu()`.
+Port of `plsvo_tpu/pipeline/fused.py`. With has_ls the reprojection
+refines points and both segment endpoints in one batch, pose optimization
+takes the segment residuals too, structure optimization refines the
+selected lines' endpoints with the points, and the seed update runs point
+seeds and both line-seed endpoints through one chain. Without it the
+segment tables flow through with every row invalid, so row spaces match
+the JAX package either way.
+
+Pipelined mode chains the steps on the device: each step emits the next
+frame's align inputs (`build_next_inputs`) and its map tables as a carry;
+the next step (`track_frame_step_tables`) takes a raw image, builds its
+pyramid, applies the host's delta blob to the carry (`apply_mt_deltas`)
+and runs. A fetch is one device-side concatenation (`flatpack`) and one
+asynchronous copy into pinned host memory (`submit_fetch`).
 """
 from __future__ import annotations
 
@@ -18,12 +24,21 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from plsvo_torch.image import build_pyramid
 from plsvo_torch.indexing import (gather_clamped, nonzero_padded, scatter_drop,
                                   top_k_stable)
 from plsvo_torch.ops import pose_opt, sparse_align, struct_opt
 from plsvo_torch.pipeline import reprojector
 
 CONV_BUDGET = 64  # converged-seed reports per frame
+
+# Widths of the carry delta blob (the JAX package's): rows that do not fit
+# wait for the next frame's blob, since each entry is a whole-row snapshot.
+MT_DELTA_DP = 256  # point rows
+MT_DELTA_DL = 96  # line rows
+MT_DELTA_OP = 256  # point observations
+MT_DELTA_OL = 96  # line observations
+MT_DELTA_NE = 16  # evicted keyframe slots (at least; see mt_evict_width)
 
 
 class LastFrameTables(NamedTuple):
@@ -76,8 +91,12 @@ class FusedResult(NamedTuple):
     align_seg_alive: torch.Tensor
     pt: reprojector.ReprojResult
     pt_inlier: torch.Tensor
+    pt_f_cur: torch.Tensor  # (M, 3) bearings of the matched uvs
     seg: reprojector.ReprojSegResult
     seg_inlier: torch.Tensor
+    seg_sf_cur: torch.Tensor
+    seg_ef_cur: torch.Tensor
+    seg_line_cur: torch.Tensor
     st_pt_lm: torch.Tensor
     st_pt_pos: torch.Tensor
     st_pt_valid: torch.Tensor
@@ -91,9 +110,12 @@ class FullStepResult(NamedTuple):
     fused: FusedResult
     pt_seeds: object  # PointSeeds (stays on the device)
     ln_seeds: object  # LineSeeds (stays on the device)
-    pt_conv: object  # (rows[K], depth[K], n_conv, alive (S,), n_starved) or None
-    ln_conv: object  # (rows[K], d_s[K], d_e[K], n_conv, alive, n_starved) or None
-    mt: MapTables  # map tables with this frame's structure-opt applied
+    # compact seed sync: converged rows and depths in CONV_BUDGET entries,
+    # the alive mask packed 16 flags to an f32 word (pack_bits16)
+    pt_conv: object  # (rows[K], depth[K], n_conv, alive_packed, n_starved) or None
+    ln_conv: object  # (rows[K], d_s[K], d_e[K], n_conv, alive_packed, n_starved) or None
+    next: object = None  # NextFrameInputs (pipelined mode) or None
+    mt: MapTables = None  # map tables with this frame's structure-opt applied
 
 
 def pack_blob_host(arrays) -> np.ndarray:
@@ -149,6 +171,12 @@ def map_tables_from_state(m) -> MapTables:
         kf_R=m.dev("kf_R"), kf_t=m.dev("kf_t"))
 
 
+def map_tables_upload(m) -> MapTables:
+    """A fresh upload of the mirror's tables, bypassing its cached device
+    copies: what a carry must equal once every queued delta is applied."""
+    return MapTables(*[m._to_dev(getattr(m, n)) for n in MapTables._fields])
+
+
 def _unproject(uv, fx, fy, cx, cy):
     x = (uv[..., 0] - cx) / fx
     y = (uv[..., 1] - cy) / fy
@@ -200,9 +228,9 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
             cur_pyr[:n_pyr_use], R_cur, t_cur, fx, fy, cx, cy,
             cell_size=cell_size, cell_size_segs=cell_size_segs,
             max_pts_out=max_pts_out, max_segs_out=max_segs_out, **rkw)
-        seg_line = pose_opt.line_coeffs_from_bearings(
-            _unproject(seg_res.s_uv, fx, fy, cx, cy),
-            _unproject(seg_res.e_uv, fx, fy, cx, cy))
+        seg_sf_cur = _unproject(seg_res.s_uv, fx, fy, cx, cy)
+        seg_ef_cur = _unproject(seg_res.e_uv, fx, fy, cx, cy)
+        seg_line = pose_opt.line_coeffs_from_bearings(seg_sf_cur, seg_ef_cur)
     else:
         pt_res = reprojector.reproject_points(
             *pt_args, mt.kf_R, mt.kf_t, kf_flat, cur_pyr[:n_pyr_use], R_cur,
@@ -214,7 +242,7 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
         seg_res = reprojector.ReprojSegResult(
             lm_idx=zi.long(), selected=zb, s_uv=z2, e_uv=z2, level=zi,
             matched=zb, n_attempts=zi[0], n_matches=zi[0])
-        seg_line = torch.zeros((M, 3), device=dev)
+        seg_line = seg_sf_cur = seg_ef_cur = torch.zeros((M, 3), device=dev)
     pt_f_cur = _unproject(pt_res.uv, fx, fy, cx, cy)
     seg_lm = seg_res.lm_idx
     seg_matched = seg_res.matched
@@ -259,7 +287,9 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     return FusedResult(
         R_f_w=pres.R, t_f_w=pres.t, cov=pres.cov,
         align_seg_alive=ares.seg_alive, pt=pt_res, pt_inlier=pres.pt_inlier,
-        seg=seg_res, seg_inlier=pres.seg_inlier, st_pt_lm=st_pt_lm,
+        pt_f_cur=pt_f_cur, seg=seg_res, seg_inlier=pres.seg_inlier,
+        seg_sf_cur=seg_sf_cur, seg_ef_cur=seg_ef_cur, seg_line_cur=seg_line,
+        st_pt_lm=st_pt_lm,
         st_pt_pos=all_new[:Kp], st_pt_valid=st_pt_valid & all_impr[:Kp],
         st_ln_lm=st_ln_lm, st_ln_spos=all_new[Kp:Kp + Kl],
         st_ln_epos=all_new[Kp + Kl:],
@@ -267,7 +297,8 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
 
 
 def apply_struct_to_mt(mt: MapTables, res: FusedResult) -> MapTables:
-    """Scatter this frame's structure-opt refinements into the tables."""
+    """Scatter this frame's structure-opt refinements into the tables (the
+    host applies the same values to its mirror when it fetches them)."""
     P = mt.pt_pos.shape[0]
     L = mt.ln_spos.shape[0]
     rp = torch.where(res.st_pt_valid, res.st_pt_lm, torch.full_like(res.st_pt_lm, P))
@@ -277,12 +308,221 @@ def apply_struct_to_mt(mt: MapTables, res: FusedResult) -> MapTables:
                        ln_epos=scatter_drop(mt.ln_epos, rl, res.st_ln_epos))
 
 
+# ---------------------------------------------------------------------------
+# The map carry (pipelined mode). Host-initiated map changes (harvested
+# landmarks, status changes, keyframe installs and evictions, BA
+# write-backs) ship as ONE flat f32 blob per frame, built by
+# MapState.pack_mt_deltas in the JAX package's layout (ints < 2^24):
+#   [NE]                   evicted keyframe slots (-1 = none)
+#   [K*9 + K*3]            kf_R, kf_t (a whole copy every frame)
+#   point rows (DP wide):  idx, mask, obs_reset, pos(3), status, anchor_kf,
+#                          anchor_uv(2), anchor_f(3), anchor_level,
+#                          anchor_type, anchor_dir(2)
+#   line rows (DL wide):   idx, mask, obs_reset, spos(3), epos(3), status,
+#                          anchor_kf, anchor_suv(2), anchor_euv(2),
+#                          anchor_sf(3), anchor_ef(3), anchor_level
+#   point obs (OP wide):   row, slot, mask, kf, uv(2), f(3), level
+#   line obs (OL wide):    row, slot, mask, kf, sf(3), ef(3)
+# Applied in this order: eviction sweeps, row deltas (with their obs
+# resets), obs writes; a slot evicted and reused between two blobs is
+# cleared first and then takes the new keyframe's observations.
+# ---------------------------------------------------------------------------
+
+
+def mt_delta_len(K: int, DP: int = MT_DELTA_DP, DL: int = MT_DELTA_DL,
+                 OP: int = MT_DELTA_OP, OL: int = MT_DELTA_OL,
+                 NE: int = MT_DELTA_NE) -> int:
+    return NE + K * 12 + DP * 17 + DL * 22 + OP * 10 + OL * 10
+
+
+def mt_evict_width(max_kfs: int, pipeline_depth: int) -> int:
+    """Eviction slots of a delta blob. Each finished frame evicts at most
+    one keyframe, and between two blobs the host finishes at most two
+    drain windows of pipeline_depth frames (flush() bookkeeps the window
+    in flight and its own), so the list never spills. Up to depth 8 with
+    the default max_kfs this is the JAX package's 16."""
+    return max(MT_DELTA_NE, max_kfs, 2 * pipeline_depth)
+
+
+def _scatter_obs(tab, rows, slots, src):
+    """tab[rows[k], slots[k]] = src[k] for (P, O, ...) tab; rows out of
+    [0, P) drop."""
+    P, O = tab.shape[:2]
+    flat = torch.where((rows >= 0) & (rows < P), rows * O + slots,
+                       torch.full_like(rows, P * O))
+    out = scatter_drop(tab.reshape((P * O,) + tab.shape[2:]), flat, src)
+    return out.reshape(tab.shape)
+
+
+def apply_mt_deltas(mt: MapTables, blob: torch.Tensor, *,
+                    DP: int = MT_DELTA_DP, DL: int = MT_DELTA_DL,
+                    OP: int = MT_DELTA_OP, OL: int = MT_DELTA_OL,
+                    NE: int = MT_DELTA_NE) -> MapTables:
+    """A host delta blob applied to the device carry, with no host sync;
+    rows outside the tables drop, as the JAX package's mode="drop"."""
+    K = mt.kf_R.shape[0]
+    P = mt.pt_pos.shape[0]
+    L = mt.ln_spos.shape[0]
+    off = 0
+
+    def take(n, shape=None):
+        nonlocal off
+        a = blob[off:off + n]
+        off += n
+        return a if shape is None else a.reshape(shape)
+
+    evict = take(NE).to(mt.pt_obs_kf.dtype)
+    kf_R = take(K * 9, (K, 3, 3))
+    kf_t = take(K * 3, (K, 3))
+    # 1. eviction sweeps of the observation tables
+    pt_obs_kf = torch.where(torch.isin(mt.pt_obs_kf, evict),
+                            torch.full_like(mt.pt_obs_kf, -1), mt.pt_obs_kf)
+    ln_obs_kf = torch.where(torch.isin(mt.ln_obs_kf, evict),
+                            torch.full_like(mt.ln_obs_kf, -1), mt.ln_obs_kf)
+
+    def row_head(width, cap):
+        rows = take(width).long()
+        mask = take(width) > 0.5
+        reset = take(width) > 0.5
+        drop = torch.full_like(rows, cap)
+        return (torch.where(mask, rows, drop),
+                torch.where(mask & reset, rows, drop))
+
+    # 2. point rows, then their obs resets
+    rp, rp_reset = row_head(DP, P)
+    new = dict(kf_R=kf_R, kf_t=kf_t)
+    for name, width in (("pt_pos", 3), ("pt_status", 1), ("pt_anchor_kf", 1),
+                        ("pt_anchor_uv", 2), ("pt_anchor_f", 3),
+                        ("pt_anchor_level", 1), ("pt_anchor_type", 1),
+                        ("pt_anchor_dir", 2)):
+        tab = getattr(mt, name)
+        new[name] = scatter_drop(tab, rp, take(DP * width, (DP,) + tab.shape[1:]))
+    pt_obs_kf = scatter_drop(pt_obs_kf, rp_reset, -1)
+    # 3. line rows, then their obs resets
+    rl, rl_reset = row_head(DL, L)
+    for name, width in (("ln_spos", 3), ("ln_epos", 3), ("ln_status", 1),
+                        ("ln_anchor_kf", 1), ("ln_anchor_suv", 2),
+                        ("ln_anchor_euv", 2), ("ln_anchor_sf", 3),
+                        ("ln_anchor_ef", 3), ("ln_anchor_level", 1)):
+        tab = getattr(mt, name)
+        new[name] = scatter_drop(tab, rl, take(DL * width, (DL,) + tab.shape[1:]))
+    ln_obs_kf = scatter_drop(ln_obs_kf, rl_reset, -1)
+
+    # 4.-5. observation writes
+    def obs_head(width, cap):
+        rows = take(width).long()
+        slots = take(width).long()
+        mask = take(width) > 0.5
+        return torch.where(mask, rows, torch.full_like(rows, cap)), slots
+
+    orp, osp = obs_head(OP, P)
+    new["pt_obs_kf"] = _scatter_obs(pt_obs_kf, orp, osp, take(OP))
+    new["pt_obs_uv"] = _scatter_obs(mt.pt_obs_uv, orp, osp, take(OP * 2, (OP, 2)))
+    new["pt_obs_f"] = _scatter_obs(mt.pt_obs_f, orp, osp, take(OP * 3, (OP, 3)))
+    new["pt_obs_level"] = _scatter_obs(mt.pt_obs_level, orp, osp, take(OP))
+    orl, osl = obs_head(OL, L)
+    new["ln_obs_kf"] = _scatter_obs(ln_obs_kf, orl, osl, take(OL))
+    new["ln_obs_sf"] = _scatter_obs(mt.ln_obs_sf, orl, osl, take(OL * 3, (OL, 3)))
+    new["ln_obs_ef"] = _scatter_obs(mt.ln_obs_ef, orl, osl, take(OL * 3, (OL, 3)))
+    return mt._replace(**new)
+
+
+def carry_mismatches(carry: MapTables, fresh: MapTables):
+    """Names of the carry's tables that differ from a fresh upload of the
+    mirror (exact comparison). An observation slot's payload counts only
+    where its keyframe id is live: an eviction sweep clears the id and
+    leaves the payload, as the mirror's own device copy does."""
+    bad = []
+    for name in MapTables._fields:
+        a, b = getattr(carry, name).cpu(), getattr(fresh, name).cpu()
+        if "_obs_" in name and not name.endswith("obs_kf"):
+            live = getattr(carry, name.split("_obs_")[0] + "_obs_kf").cpu() >= 0
+            a, b = a[live], b[live]
+        if a.shape != b.shape or not torch.equal(a, b.to(a.dtype)):
+            bad.append(name)
+    return bad
+
+
+def pack_bits16(mask: torch.Tensor) -> torch.Tensor:
+    """(N,) bool -> (ceil(N/16),) f32 words of exact 16-bit integers."""
+    pad = (-mask.shape[0]) % 16
+    m = torch.cat([mask, mask.new_zeros(pad)]).reshape(-1, 16).to(torch.int32)
+    bits = torch.arange(16, dtype=torch.int32, device=mask.device)
+    return (m << bits).sum(-1).to(torch.float32)
+
+
+def unpack_bits16(words, n: int) -> np.ndarray:
+    """Inverse of pack_bits16 on fetched host words."""
+    w = np.asarray(words, np.int64)
+    bits = (w[:, None] >> np.arange(16)[None, :]) & 1
+    return bits.reshape(-1)[:n].astype(bool)
+
+
+class NextFrameInputs(NamedTuple):
+    """The next frame's step inputs, built on the device from this frame's
+    results (pipelined mode): its align tables, its reference pose, the
+    last-optimized stamps and this frame's pyramid."""
+
+    last: LastFrameTables
+    R_last: torch.Tensor  # the optimized pose, Gram-Schmidt stabilised
+    t_last: torch.Tensor
+    pt_last_optim: torch.Tensor  # (P,) f32, stamped with this frame's
+    ln_last_optim: torch.Tensor  # structure-opt selections
+    pyr: object = None  # tuple of levels: the next step's last_pyr
+
+
+def _gram_schmidt(R):
+    """Row-wise Gram-Schmidt, the host's drift control in _post_fused."""
+    x = R[0] / torch.linalg.norm(R[0]).clamp_min(1e-12)
+    y = R[1] - torch.dot(x, R[1]) * x
+    y = y / torch.linalg.norm(y).clamp_min(1e-12)
+    return torch.stack([x, y, torch.linalg.cross(x, y)])
+
+
+def build_next_inputs(res: FusedResult, mt: MapTables, pt_last_optim,
+                      ln_last_optim, frame_id: int,
+                      cur_pyr=None) -> NextFrameInputs:
+    """The next frame's align inputs from this frame's results, on the
+    device. As the host's last-frame blob, except that landmark deletions
+    the host decides from its counters reach these tables one frame later
+    (a just-deleted landmark can take part in one more alignment)."""
+    R = _gram_schmidt(res.R_f_w)
+    t = res.t_f_w
+    center = -R.T @ t
+    lm, slm = res.pt.lm_idx, res.seg.lm_idx  # rows not selected: any value
+
+    def dist(tab, rows):
+        return torch.linalg.norm(gather_clamped(tab, rows) - center[None], dim=-1)
+
+    pt_valid = (res.pt.matched & res.pt_inlier
+                & (gather_clamped(mt.pt_status, lm) > 0))
+    seg_valid = (res.seg.matched & res.seg_inlier
+                 & (gather_clamped(mt.ln_status, slm) > 0))
+    pt_depth = dist(mt.pt_pos, lm)
+    s_depth, e_depth = dist(mt.ln_spos, slm), dist(mt.ln_epos, slm)
+    last = LastFrameTables(
+        pt_uv=res.pt.uv, pt_f=res.pt_f_cur, pt_depth=pt_depth,
+        pt_valid=pt_valid, seg_suv=res.seg.s_uv, seg_euv=res.seg.e_uv,
+        seg_sf=res.seg_sf_cur, seg_ef=res.seg_ef_cur, seg_sdepth=s_depth,
+        seg_edepth=e_depth, seg_valid=seg_valid)
+    fid = float(frame_id)
+    P, L = pt_last_optim.shape[0], ln_last_optim.shape[0]
+    plo = scatter_drop(pt_last_optim, torch.where(
+        res.st_pt_valid, res.st_pt_lm, torch.full_like(res.st_pt_lm, P)), fid)
+    llo = scatter_drop(ln_last_optim, torch.where(
+        res.st_ln_valid, res.st_ln_lm, torch.full_like(res.st_ln_lm, L)), fid)
+    return NextFrameInputs(last=last, R_last=R, t_last=t, pt_last_optim=plo,
+                           ln_last_optim=llo,
+                           pyr=None if cur_pyr is None else tuple(cur_pyr))
+
+
 def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                            R_last, t_last, pt_last_optim, ln_last_optim,
                            mt: MapTables, pt_seeds, ln_seeds, batch_counter: int,
                            fx, fy, cx, cy, *, update_pt_seeds: bool,
                            update_ln_seeds: bool = False, max_seed_kfs: int,
                            sigma_conv_factor: float, n_pyr_seed: int,
+                           emit_next: bool = False, frame_id=None,
                            pt_width=None, ln_width=None,
                            seed_search_budget: int = 0, n_epi_steps: int = 64,
                            seed_work_budget: int = 0, **kw) -> FullStepResult:
@@ -314,7 +554,8 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                                        for new, old in zip(pres.seeds, pt_seeds)])
             rows = nonzero_padded(pres.converged, CONV_BUDGET, pt_seeds.mu.shape[0])
             pt_conv = (rows, gather_clamped(pres.depth_converged, rows),
-                       pres.converged.sum(), pt_seeds.alive, pres.skipped.sum())
+                       pres.converged.sum(), pack_bits16(pt_seeds.alive),
+                       pres.skipped.sum())
         if update_ln_seeds:
             ln_seeds = df.LineSeeds(*[torch.cat([new, old[Wl:]])
                                       for new, old in zip(lres.seeds, ln_seeds)])
@@ -322,9 +563,13 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                                   ln_seeds.mu_s.shape[0])
             ln_conv = (rows, gather_clamped(lres.depth_s, rows),
                        gather_clamped(lres.depth_e, rows), lres.converged.sum(),
-                       ln_seeds.alive, lres.skipped.sum())
+                       pack_bits16(ln_seeds.alive), lres.skipped.sum())
+    nxt = None
+    if emit_next:
+        nxt = build_next_inputs(res, mt, pt_last_optim, ln_last_optim,
+                                frame_id, cur_pyr=cur_pyr)
     return FullStepResult(fused=res, pt_seeds=pt_seeds, ln_seeds=ln_seeds,
-                          pt_conv=pt_conv, ln_conv=ln_conv,
+                          pt_conv=pt_conv, ln_conv=ln_conv, next=nxt,
                           mt=apply_struct_to_mt(mt, res))
 
 
@@ -332,7 +577,8 @@ def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
                      mt: MapTables, pt_seeds, ln_seeds, batch_counter: int,
                      fx, fy, cx, cy, *, specs, **kw) -> FullStepResult:
     """The complete tracked-frame device step from one packed host blob
-    (layout `last_blob_specs`)."""
+    (layout `last_blob_specs`); with emit_next=True (and frame_id) it also
+    returns the next frame's inputs."""
     (pt_uv, pt_f, pt_depth, pt_valid, seg_suv, seg_euv, seg_sf, seg_ef,
      seg_sdepth, seg_edepth, seg_valid, R_last, t_last, pt_last_optim,
      ln_last_optim) = unpack_blob(blob, specs)
@@ -344,6 +590,47 @@ def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
                                   cx, cy, **kw)
 
 
+def track_frame_step_tables(cur_img, kf_flat, nxt: NextFrameInputs,
+                            mt: MapTables, pt_seeds, ln_seeds,
+                            batch_counter: int, fx, fy, cx, cy, *,
+                            n_levels: int, frame_id: int, mt_delta=None,
+                            evict_width: int = MT_DELTA_NE,
+                            **kw) -> FullStepResult:
+    """The pipelined step: the align inputs and the last pyramid come from
+    the previous step's NextFrameInputs, the map tables from its carry with
+    this frame's host delta blob (width evict_width for evictions) applied,
+    and the pyramid is built here from the raw image (any dtype)."""
+    if mt_delta is not None:
+        mt = apply_mt_deltas(mt, mt_delta, NE=evict_width)
+    cur_pyr = build_pyramid(cur_img.to(torch.float32), n_levels)
+    return _track_frame_step_impl(
+        nxt.pyr, cur_pyr, kf_flat, nxt.last, nxt.R_last, nxt.t_last,
+        nxt.pt_last_optim, nxt.ln_last_optim, mt, pt_seeds, ln_seeds,
+        batch_counter, fx, fy, cx, cy, emit_next=True, frame_id=frame_id,
+        **kw)
+
+
+# ---------------------------------------------------------------------------
+# Fetch: flatpack concatenates every leaf of a result tree into ONE f32
+# vector on the device; submit_fetch copies it into pinned host memory
+# asynchronously and returns at once; flatunpack splits the host vector
+# back into the tree. Integer and bool leaves round-trip exactly (all ints
+# are < 2^24). The JAX package hands each fetch to a thread because a fetch
+# over its remote TPU link blocks for tens of milliseconds; on a local card
+# the copy is queued on the stream behind the work that produces it, so no
+# thread is needed.
+# ---------------------------------------------------------------------------
+
+_FETCH_DROP = ("pt_f_cur", "seg_sf_cur", "seg_ef_cur", "seg_line_cur")
+
+
+def fetch_view(res: FusedResult) -> FusedResult:
+    """The result without the fields the host recomputes from fetched uvs
+    (unprojected bearings and line coefficients); the device copy keeps
+    them for build_next_inputs."""
+    return res._replace(**{k: getattr(res, k).new_zeros(0) for k in _FETCH_DROP})
+
+
 def _leaves(tree):
     if tree is None:
         return []
@@ -352,32 +639,76 @@ def _leaves(tree):
     return [x for t in tree for x in _leaves(t)]
 
 
+_LEAF = object()
+
+
 def _rebuild(tree, it):
     if tree is None:
         return None
-    if torch.is_tensor(tree):
+    if tree is _LEAF or torch.is_tensor(tree):
         return next(it)
     vals = [_rebuild(t, it) for t in tree]
     return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
 
 
-def fetch(tree):
-    """Host numpy copy of a tree (tuples / NamedTuples) of device tensors
-    through ONE device-side concatenation and ONE `.cpu()`. Integer and
-    bool leaves round-trip exactly (all ints are < 2^24)."""
+def flatpack(tree):
+    """(flat f32 device vector, meta) of a tree (tuples, lists and
+    NamedTuples) of tensors."""
     leaves = _leaves(tree)
+    meta = (tuple((tuple(x.shape), x.dtype) for x in leaves),
+            _rebuild(tree, iter([_LEAF] * len(leaves))))
     if not leaves:
-        return tree
-    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in leaves]).cpu().numpy()
+        return torch.zeros(0), meta
+    return torch.cat([x.reshape(-1).to(torch.float32) for x in leaves]), meta
+
+
+class FetchHandle:
+    """A fetch in flight; result() waits for its copy and returns numpy.
+    Holds the device vector and the pinned buffer until then."""
+
+    def __init__(self, flat: torch.Tensor):
+        self._flat = flat
+        self._event = None
+        if flat.device.type == "cuda":
+            self._buf = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            self._buf.copy_(flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._buf = flat
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = self._flat = None
+        return self._buf.numpy()
+
+
+def submit_fetch(flat: torch.Tensor) -> FetchHandle:
+    return FetchHandle(flat)
+
+
+def flatunpack(flat_np: np.ndarray, meta):
+    """The tree of flatpack's meta with numpy leaves cut from flat_np."""
+    specs, skeleton = meta
     out = []
     off = 0
-    for x in leaves:
-        n = x.numel()
-        a = flat[off:off + n].reshape(tuple(x.shape))
+    for shape, dtype in specs:
+        n = int(np.prod(shape)) if shape else 1
+        a = flat_np[off:off + n].reshape(shape)
         off += n
-        if x.dtype == torch.bool:
+        if dtype == torch.bool:
             a = a > 0.5
-        elif not x.dtype.is_floating_point:
-            a = np.rint(a).astype(str(x.dtype).replace("torch.", ""))
+        elif not dtype.is_floating_point:
+            a = np.rint(a).astype(str(dtype).replace("torch.", ""))
         out.append(a)
-    return _rebuild(tree, iter(out))
+    return _rebuild(skeleton, iter(out))
+
+
+def fetch(tree):
+    """Host numpy copy of a tree of device tensors: one concatenation, one
+    copy, waited for."""
+    if not _leaves(tree):
+        return tree
+    flat, meta = flatpack(tree)
+    return flatunpack(submit_fetch(flat).result(), meta)

@@ -1,10 +1,22 @@
 """Fixed-capacity SoA state for frames, keyframes and landmarks.
 
-Port of `plsvo_tpu/pipeline/state.py` for the sync path. Bookkeeping lives
-on the host in numpy (copied from the JAX package so the host decisions
-match, float64 intermediates included); pyramids and the cached device
-copies of the tables are torch tensors on the handler's device. The
-pipelined-mode delta queues are not ported.
+Port of `plsvo_tpu/pipeline/state.py`. Bookkeeping lives on the host in
+numpy (copied from the JAX package so the host decisions match, float64
+intermediates included); pyramids and the cached device copies of the
+tables are torch tensors on the handler's device. In pipelined mode the
+map tables live on the device as a carry (`fused.MapTables`), and the host
+mutators queue their changes for one packed delta blob per frame
+(`MapState.pack_mt_deltas`, applied by `fused.apply_mt_deltas`).
+
+Two divergences from the JAX package, both on the carry path:
+- `remove_keyframe` queues every landmark row whose status or anchor the
+  eviction changes; the JAX package queues none, so its carry keeps
+  deleted rows alive and anchors on the evicted keyframe.
+- `pack_mt_deltas` never asserts on the number of queued evictions: the
+  handler sizes the eviction list from max(MT_DELTA_NE, max_kfs,
+  2 x pipeline_depth) (`fused.mt_evict_width`), which its drains never
+  exceed. A narrower list that would spill sets `_mt_overflow`, as
+  `transform` does, and the handler then resyncs the carry in full.
 
 Landmark status: 0 = DELETED, 1 = CANDIDATE, 2 = UNKNOWN, 3 = GOOD
 """
@@ -156,6 +168,13 @@ class MapState:
         self._dev: dict = {}
         self._dev_obs: dict = {}
         self._obs_dirty = {"pt": set(), "ln": set()}
+        # carry delta queues (pipelined mode): dicts double as ordered sets,
+        # so rows ship in the order they were queued
+        self._mt_dirty = {"pt": {}, "ln": {}}  # landmark rows to resend whole
+        self._mt_obs_delta = {"pt": {}, "ln": {}}  # (row, slot) obs writes
+        self._mt_obs_reset = {"pt": set(), "ln": set()}  # rows whose obs clear
+        self._mt_evicted: list = []  # evicted keyframe slots
+        self._mt_overflow = False  # a change the deltas cannot express
 
     _OBS_GROUPS = {
         "pt": ("pt_obs_kf", "pt_obs_uv", "pt_obs_f", "pt_obs_level"),
@@ -163,7 +182,10 @@ class MapState:
     }
 
     def _to_dev(self, a):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
+        """A device copy of a host table: always a copy, never a view (on
+        the CPU a view would let in-place device edits, such as
+        _obs_clear_kf_on_device, write through to the host mirror)."""
+        return torch.tensor(np.asarray(a), device=self.device)
 
     def dev(self, name: str):
         """Device copy of a host table, cached until invalidated."""
@@ -196,6 +218,117 @@ class MapState:
             if kf_name in self._dev_obs:
                 a = self._dev_obs[kf_name]
                 a[a == slot] = -1
+
+    # ---- carry deltas (layout: fused.apply_mt_deltas) ----
+    def mark_mt_dirty(self, kind: str, rows):
+        """Queue landmark rows ("pt" or "ln") for a whole-row resend to the
+        device carry."""
+        d = self._mt_dirty[kind]
+        for r in np.atleast_1d(np.asarray(rows, np.int64)):
+            d[int(r)] = None
+
+    def mt_mark_clean(self):
+        """Drop every queued delta: the carry is being rebuilt from a full
+        upload of the mirror, which already holds them."""
+        for d in self._mt_dirty.values():
+            d.clear()
+        for d in self._mt_obs_delta.values():
+            d.clear()
+        for s in self._mt_obs_reset.values():
+            s.clear()
+        self._mt_evicted = []
+        self._mt_overflow = False
+
+    def mt_dirty_pending(self) -> int:
+        return (sum(len(d) for d in self._mt_dirty.values())
+                + sum(len(d) for d in self._mt_obs_delta.values())
+                + len(self._mt_evicted))
+
+    def mt_needs_resync(self, NE: int) -> bool:
+        """True when the queued changes cannot ride delta blobs of eviction
+        width NE: a map-wide transform, or more evictions than one blob
+        holds (a spilled eviction sweep would clear observations that an
+        earlier blob installed in a reused slot)."""
+        return self._mt_overflow or len(self._mt_evicted) > NE
+
+    def pack_mt_deltas(self, DP: int, DL: int, OP: int, OL: int,
+                       NE: int) -> np.ndarray:
+        """Drain up to the given widths from the queues into ONE flat f32
+        blob, the JAX package's layout. Rows are whole-row snapshots of the
+        mirror taken now, so a row that does not fit waits for the next
+        blob without harm. Evictions never spill: with more than NE queued
+        the blob carries none of them and `_mt_overflow` is set, so the
+        handler resyncs the carry in full before its next step."""
+        def drain(d, n, skip=None):
+            # skip: obs writes of a row whose obs reset has not shipped
+            # wait for it, or the later reset would wipe them
+            keys = []
+            for k in d:
+                if len(keys) >= n:
+                    break
+                if skip is not None and k[0] in skip:
+                    continue
+                keys.append(k)
+            for k in keys:
+                del d[k]
+            return keys
+
+        ev = np.full(NE, -1, np.float32)
+        if len(self._mt_evicted) > NE:
+            self._mt_overflow = True
+        else:
+            ev[:len(self._mt_evicted)] = self._mt_evicted
+            self._mt_evicted = []
+        parts = [ev, self.kf_R.ravel().astype(np.float32),
+                 self.kf_t.ravel().astype(np.float32)]
+
+        def rows_part(kind, width, tables):
+            rows = np.asarray(drain(self._mt_dirty[kind], width), np.int64)
+            n = len(rows)
+            idx = np.zeros(width, np.float32)
+            idx[:n] = rows
+            mask = np.zeros(width, np.float32)
+            mask[:n] = 1.0
+            reset = np.zeros(width, np.float32)
+            rs = self._mt_obs_reset[kind]
+            reset[:n] = [1.0 if int(r) in rs else 0.0 for r in rows]
+            rs.difference_update(int(r) for r in rows)
+            out = [idx, mask, reset]
+            for tab in tables:
+                col = np.zeros((width,) + tab.shape[1:], np.float32)
+                col[:n] = tab[rows]
+                out.append(col.ravel())
+            return out
+
+        parts += rows_part("pt", DP, (
+            self.pt_pos, self.pt_status, self.pt_anchor_kf, self.pt_anchor_uv,
+            self.pt_anchor_f, self.pt_anchor_level, self.pt_anchor_type,
+            self.pt_anchor_dir))
+        parts += rows_part("ln", DL, (
+            self.ln_spos, self.ln_epos, self.ln_status, self.ln_anchor_kf,
+            self.ln_anchor_suv, self.ln_anchor_euv, self.ln_anchor_sf,
+            self.ln_anchor_ef, self.ln_anchor_level))
+
+        def obs_part(kind, width, tables):
+            pairs = drain(self._mt_obs_delta[kind], width,
+                          skip=self._mt_obs_reset[kind])
+            n = len(pairs)
+            r = np.asarray([p[0] for p in pairs], np.int64)
+            s = np.asarray([p[1] for p in pairs], np.int64)
+            head = np.zeros((3, width), np.float32)
+            head[0, :n], head[1, :n], head[2, :n] = r, s, 1.0
+            out = list(head)
+            for tab in tables:
+                col = np.zeros((width,) + tab.shape[2:], np.float32)
+                col[:n] = tab[r, s]
+                out.append(col.ravel())
+            return out
+
+        parts += obs_part("pt", OP, (self.pt_obs_kf, self.pt_obs_uv,
+                                     self.pt_obs_f, self.pt_obs_level))
+        parts += obs_part("ln", OL, (self.ln_obs_kf, self.ln_obs_sf,
+                                     self.ln_obs_ef))
+        return np.concatenate(parts)
 
     def kf_atlas_flat(self, n_levels: int):
         """Flat-packed keyframe pyramid atlas, cached until the next keyframe
@@ -330,6 +463,7 @@ class MapState:
             self.pt_anchor_f[lm] = frame.pt_f[sel]
             self.pt_anchor_level[lm] = frame.pt_level[sel]
             self._obs_dirty["pt"].update(lm.tolist())
+            self._queue_kf_obs("pt", lm, slots)
         sel = np.where(frame.seg_valid & (frame.seg_lm >= 0))[0]
         if len(sel):
             lm, first = np.unique(frame.seg_lm[sel], return_index=True)
@@ -347,8 +481,17 @@ class MapState:
             self.ln_anchor_ef[lm] = frame.seg_ef[sel]
             self.ln_anchor_level[lm] = frame.seg_level[sel]
             self._obs_dirty["ln"].update(lm.tolist())
+            self._queue_kf_obs("ln", lm, slots)
         self._set_key_landmarks(slot, frame)
         return slot
+
+    def _queue_kf_obs(self, kind, rows, slots):
+        """Queue a keyframe install's anchor refresh (whole rows) and its
+        observation appends for the carry."""
+        d, od = self._mt_dirty[kind], self._mt_obs_delta[kind]
+        for r, s in zip(rows.tolist(), slots.tolist()):
+            d[r] = None
+            od[(r, s)] = None
 
     @staticmethod
     def _obs_slots_vec(obs_kf_rows, stamp_rows):
@@ -359,7 +502,10 @@ class MapState:
 
     def remove_keyframe(self, slot: int):
         """Evict a keyframe with reference-counting landmark deletion; live
-        landmarks anchored there re-anchor to their most recent live obs."""
+        landmarks anchored there re-anchor to their most recent live obs.
+        For the carry: one in-graph sweep clears the slot's observations,
+        and every landmark row whose status or anchor changes here is
+        queued whole (the JAX package queues none of them)."""
         self.kf_occupied[slot] = False
         self.kf_frame_id[slot] = -1
         self.kf_pt_lm[slot] = -1
@@ -367,6 +513,13 @@ class MapState:
         self.kf_key_lms[slot] = -1
         self.invalidate()
         self._obs_clear_kf_on_device(slot)
+        self._mt_evicted.append(int(slot))
+        # queued obs writes into the dead slot would re-install stale
+        # keyframe ids; the mirror already holds -1 there
+        for kind, kf_tab in (("pt", self.pt_obs_kf), ("ln", self.ln_obs_kf)):
+            dd = self._mt_obs_delta[kind]
+            for key in [k for k in dd if kf_tab[k] == slot]:
+                del dd[key]
         observed_here = (self.pt_obs_kf == slot).any(axis=1)
         n_obs = (self.pt_obs_kf >= 0).sum(axis=1)
         live = self.pt_status > 0
@@ -415,6 +568,9 @@ class MapState:
                 xyz = self.kf_R[k] @ pos + self.kf_t[k]
                 z = max(float(xyz[2]), 1e-6)
                 tgt[r] = (fx * xyz[0] / z + cx, fy * xyz[1] / z + cy)
+        # deleted or re-anchored rows (need holds both kinds)
+        self.mark_mt_dirty("pt", np.where(dead | need)[0])
+        self.mark_mt_dirty("ln", np.where(ldead | lneed)[0])
         if dead.any():
             self.kf_pt_lm[np.isin(self.kf_pt_lm, np.where(dead)[0])] = -1
         if ldead.any():
@@ -437,6 +593,7 @@ class MapState:
         self.pt_obs_stamp[lm, p] = self.pt_obs_ptr[lm]
         self.pt_obs_ptr[lm] += 1
         self._obs_dirty["pt"].add(int(lm))
+        self._mt_obs_delta["pt"][(int(lm), int(p))] = None
 
     def _add_ln_obs(self, lm: int, kf_slot: int, sf, ef):
         p = self._obs_slot(self.ln_obs_kf[lm], self.ln_obs_stamp[lm])
@@ -446,6 +603,7 @@ class MapState:
         self.ln_obs_stamp[lm, p] = self.ln_obs_ptr[lm]
         self.ln_obs_ptr[lm] += 1
         self._obs_dirty["ln"].add(int(lm))
+        self._mt_obs_delta["ln"][(int(lm), int(p))] = None
 
     def alloc_points(self, n: int) -> np.ndarray:
         return np.where(self.pt_status == ST_DELETED)[0][:n]
@@ -474,6 +632,8 @@ class MapState:
         self.pt_obs_stamp[r] = -1
         self.pt_obs_ptr[r] = 0
         self._obs_dirty["pt"].add(r)
+        self._mt_dirty["pt"][r] = None
+        self._mt_obs_reset["pt"].add(r)
         self._add_pt_obs(r, kf_slot, f, uv, level)
         self.invalidate("pt_pos", "pt_status", "pt_anchor_kf", "pt_anchor_uv",
                         "pt_anchor_f", "pt_anchor_level", "pt_anchor_type",
@@ -502,6 +662,8 @@ class MapState:
         self.ln_obs_stamp[r] = -1
         self.ln_obs_ptr[r] = 0
         self._obs_dirty["ln"].add(r)
+        self._mt_dirty["ln"][r] = None
+        self._mt_obs_reset["ln"].add(r)
         self._add_ln_obs(r, kf_slot, sf, ef)
         self.invalidate("ln_spos", "ln_epos", "ln_status", "ln_anchor_kf",
                         "ln_anchor_suv", "ln_anchor_euv", "ln_anchor_sf",
@@ -526,6 +688,21 @@ class MapState:
         if len(d) == 0:
             return None, None
         return float(np.median(d)), float(d.min())
+
+    def transform(self, R: np.ndarray, t: np.ndarray, s: float):
+        """Similarity transform of the whole map: keyframe poses and live
+        landmarks. The carry cannot take it as deltas, so it is resynced."""
+        self._mt_overflow = True
+        for k in np.where(self.kf_occupied)[0]:
+            Rk, tk = self.kf_R[k], self.kf_t[k]
+            self.kf_R[k] = Rk @ R.T
+            self.kf_t[k] = s * tk - Rk @ R.T @ t
+        act = self.pt_status > 0
+        self.pt_pos[act] = s * (self.pt_pos[act] @ R.T) + t
+        actl = self.ln_status > 0
+        self.ln_spos[actl] = s * (self.ln_spos[actl] @ R.T) + t
+        self.ln_epos[actl] = s * (self.ln_epos[actl] @ R.T) + t
+        self.invalidate()
 
 
 def validate_map(m: MapState) -> List[str]:

@@ -44,12 +44,14 @@ R = np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
 img = synthetic.render_aa(scene, cam, R, np.asarray([0.132, 0.006 * np.sin(1.8), -2.0]),
                           device="cpu")
 n = []
-for c in (points, lines):
+pipelined = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+    cfg.pipeline, pipelined=True, pipeline_depth=4))
+for c in (points, lines, pipelined):
     r = FrameHandlerMono(cam, c, device="cpu").add_image(img, 0.0)
     assert (r.stage, r.quality) == ("first", "good") and r.n_pt_matches > 0, r
     n.append(r.n_pt_matches)
 # the lines config adds KLT targets along the detected segments
-assert n[1] > n[0], n
+assert n[1] > n[0] and n[2] == n[1], n
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "plsvo_tpu"))
 print("BAD", bad)
@@ -157,10 +159,12 @@ def first_frame():
     pytest.param("loba_enabled", True, id="loba_enabled"),
     pytest.param("has_pt", False, id="has_pt"),
     pytest.param("use_edgelets", False, id="use_edgelets"),
-    pytest.param("has_refinement", True, id="has_refinement")])
+    pytest.param("has_refinement", True, id="has_refinement"),
+    pytest.param("pipelined", True, id="pipelined")])
 def test_sync_option_tracks_first_frame(first_frame, field, value):
-    """Each sync-path option the port covers constructs on the CPU and
-    takes the first frame (line-only mode from segment targets alone)."""
+    """Each option the port covers constructs on the CPU and takes the
+    first frame (line-only mode from segment targets alone; pipelined mode
+    runs its first frames as the sync path does)."""
     cfg = _slice_config(fast_config, **{field: value})
     cam, img = first_frame
     vo = frame_handler.FrameHandlerMono(cam, cfg, device="cpu")
@@ -178,16 +182,11 @@ class _AtanCamera:
 
 
 @pytest.mark.parametrize("make_cam,match", [
-    pytest.param(lambda: PinholeCamera.create(320, 240, 250.0, 250.0, 160.0,
-                                              120.0), "pipelined",
-                 id="pipelined"),
     pytest.param(_AtanCamera, "camera model", id="non_pinhole_camera")])
 def test_unported_config_raises(make_cam, match):
-    """The pipelined mode and camera models other than the pinhole are
-    not ported."""
-    cfg = _slice_config(fast_config, pipelined=match == "pipelined")
+    """Camera models other than the pinhole are not ported."""
     with pytest.raises(NotImplementedError, match=match):
-        frame_handler.FrameHandlerMono(make_cam(), cfg, device="cpu")
+        frame_handler.FrameHandlerMono(make_cam(), fast_config(), device="cpu")
 
 
 @pytest.mark.parametrize("make", [fast_config, default_config],
