@@ -46,13 +46,47 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                half of the DEFAULT add_image calls) for this run and the
                sync lines run; launches, host syncs and device idle share
                per frame of the profiled window
+  6b. batched — this slice's path: BatchedVO(mode="vmap") over BATCH = 8
+               sequences, default_config() with pipelined=True,
+               pipeline_depth=12 (bench.py's batched configuration), the
+               lines run's 752x480 frames as uint8, staggered as bench.py
+               staggers them (sequence k runs k frames behind): 40 frames
+               with the launch counts set to 0 before and read after, 12
+               more under torch.profiler, flush(). Every K2 launch and every
+               batched K1 input captured. Gates: every frame of every
+               sequence delivered once; DEFAULT reached and kept; ATE < 1%
+               of each path; each sequence's synced carry equal to a fresh
+               upload of its map and validate_map clean; one K1 launch per
+               10 requests (30 images) of each batched detection; one
+               reprojection launch of B x 384 rows per batched step;
+               sequences 0 and 7 tracked again by solo pipelined handlers
+               within SOLO_TOL_M of the batch per frame. Report: aggregate
+               fps as bench.py computes it, launches, host syncs and device
+               idle per batched step
+  6c. streams — BatchedVO(mode="streams"), 2 pipelined handlers, 20
+               frames: every frame delivered once
+  6d. soaks   — tests/test_soak.py with the port alone, pipelined: 310
+               frames at 320x240, fast_config() (8 keyframe slots), the
+               orbit; at depth 12 without the blackout, and at depth 4 with
+               the blackout at frames 150-152 (at depth 12 neither package
+               survives it: phase_soak says why); test_soak's asserts on
+               the delivered results, its tail ATE < 0.004 m included (at
+               depth 12 from the JAX package's bootstrap RANSAC draws,
+               reference_ransac_draws: phase_soak says why), validate_map
+               clean, the synced carry equal to the mirror, at least one
+               keyframe eviction
   7. K2      — the mixed-align GN kernel vs its plain twin on the inputs of
-               every launch of the four capture passes: verdicts equal, uv
+               every launch of the five capture runs: verdicts equal, uv
                within 2e-3 px and mean_diff within 2e-2; at most
                K2_APART_MAX rows of a launch may instead stop one update
                apart, where the step at which the two sides part lies at
                the convergence threshold and each side's result is the
-               plain twin's iterate at its own stop (k2_compare)
+               plain twin's iterate at its own stop (k2_compare); a
+               launch that fails leaves its inputs in chiprun_out/
+               (k2_replay replays such a file on the CPU)
+  7b. K1 batched — the largest batched keyframe detection's R x 3 images:
+               masks equal, scores within rtol 1e-4 / atol 1e-3 more than
+               8 px from the border; per-call, device and plain times
   8. BA      — every local BA problem of the lines run solved on the card
                and on the CPU: finite, poses and landmarks within
                BA_POSE_ATOL / BA_LM_RTOL, every guarded write-back
@@ -70,6 +104,11 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                align_mixed_atlas's and align2d_atlas's per-call times
   11. report — one JSON line per the kernel report format, the card line,
                and as the last line {"ok": true, "device": {...}}
+
+The soaks (6d) and the streams run (6c) run right after phase 5, before
+any torch.profiler session: a profiler session slows the host work after
+it by ~30% on the H100 machine, so every timing after phase 6's profiled
+window (6b's included) carries that slowdown.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA
 device is present.
@@ -180,24 +219,29 @@ def _device_records(calls, kernel_name, pad=32):
     return d[:len(calls)]
 
 
-def kernel_device_ms(fn, kernel_name, n=50):
+def kernel_device_ms(fn, kernel_name, n=50, sessions=5):
     """Median device duration of the kernel named kernel_name over n calls
-    of fn, as torch.profiler records it on the card."""
+    of fn, as torch.profiler records it on the card; a failure when the
+    profiler records fewer than half of them in each of `sessions`
+    sessions."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(sessions):
         d = _device_records([fn] * n, kernel_name)
         if len(d) >= n // 2:
             return float(np.median(d)) / 1e3
-    fail(f"the profiler saw {len(d)} of {n} launches of {kernel_name}")
+    fail(f"the profiler saw {len(d)} of {n} launches of {kernel_name} "
+         f"in each of {sessions} sessions")
 
 
 def calls_device_ms(calls, kernel_name, reps=10):
     """Device time of each call of `calls` (the median of `reps` runs, one
     call after the other), as torch.profiler records it, from one
-    session."""
+    session; when the profiler loses records in three such sessions, each
+    call in sessions of its own (kernel_device_ms, which fails when those
+    lose too many)."""
     import torch
 
     for f in calls:
@@ -210,7 +254,6 @@ def calls_device_ms(calls, kernel_name, reps=10):
         if len(d) == len(runs):
             us = np.asarray(d).reshape(len(calls), reps)
             return [float(x) / 1e3 for x in np.median(us, axis=1)]
-    # records lost inside the session: one session per call
     return [kernel_device_ms(f, kernel_name, n=2 * reps) for f in calls]
 
 
@@ -734,7 +777,8 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
           "host syncs", flush=True)
     return dict(launches=launches, captured=cap["k2"], ate=ate, path=path,
                 bench_mean=bench_mean, bench_p90=bench_p90,
-                n_deferred=len(deferred_k1), n_write_backs=len(write_backs))
+                n_deferred=len(deferred_k1), n_write_backs=len(write_backs),
+                kind=kind)
 
 
 def launch_count(fn):
@@ -980,11 +1024,56 @@ def k2_compare(args, kw, out_k, out_p, apart_max=K2_APART_MAX):
     return None, uv_err, md_err, apart
 
 
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
+
+
+def save_k2_launch(args, kw, site, run, problem, out_dir=OUT_DIR):
+    """Keep a launch's inputs (as numpy), its options, N, call site, run and
+    the gate's verdict in out_dir, for k2_replay on any machine. Returns
+    the file's path."""
+    os.makedirs(out_dir, exist_ok=True)
+    n = args[0].shape[0]
+    path = os.path.join(out_dir, f"k2_fail_{run}_{site}_N{n}_"
+                                 f"{time.strftime('%Y%m%d-%H%M%S')}.npz")
+    np.savez(path, **{f"arg{i}": a.detach().cpu().numpy()
+                      for i, a in enumerate(args)},
+             meta=json.dumps(dict(kw=kw, N=n, site=site, run=run,
+                                  problem=problem)))
+    return path
+
+
+def k2_replay(path):
+    """A saved launch on the CPU: its inputs, the plain twin's result and
+    the plain twin's iterates (k2_iterates), as a dict."""
+    import torch
+
+    from plsvo_torch.ops import mixed_align as ma
+
+    with np.load(path) as f:
+        meta = json.loads(str(f["meta"]))
+        args = [torch.as_tensor(f[f"arg{i}"]) for i in range(13)]
+    kw = meta["kw"]
+    uv_t, md_t, stop = k2_iterates(args, kw)
+    return dict(meta=meta, args=args, plain=ma.mixed_align_plain(*args, **kw),
+                uv_iterates=uv_t, md_iterates=md_t, stop=stop)
+
+
+def k2_gate(args, kw, out_k, out_p, site, run):
+    """k2_compare, and on a failure the launch's inputs kept in chiprun_out/
+    before the smoke fails."""
+    problem, uv_err, md_err, apart = k2_compare(args, kw, out_k, out_p)
+    if problem:
+        path = save_k2_launch(args, kw, site, run, problem)
+        fail(f"{problem} ({run} run, {site}; inputs kept in {path})")
+    return uv_err, md_err, apart
+
+
 def phase_k2(captured):
-    """Every captured launch re-run by the kernel and by the plain twin on
-    the card, held to each other by k2_compare. Returns {N: (launches,
-    launches with valid rows, uv err, mean_diff err, rows that stopped an
-    update apart)}."""
+    """Every captured launch, as (args, kwargs, call site, run), re-run by
+    the kernel and by the plain twin on the card, held to each other by
+    k2_gate. Returns {N: (launches, launches with valid rows, uv err,
+    mean_diff err, rows that stopped an update apart)}."""
     import torch
 
     from plsvo_torch.ops import mixed_align as ma
@@ -992,14 +1081,12 @@ def phase_k2(captured):
     if not captured:
         fail("K2 captured no launch of the slice")
     out = {}
-    for args, kw, _ in captured:
+    for args, kw, site, run in captured:
         n = args[0].shape[0]
         out_k = ma.mixed_align_cuda(*args, **kw)
         out_p = ma.mixed_align_plain(*args, **kw)
         torch.cuda.synchronize()
-        problem, uv_err, md_err, apart = k2_compare(args, kw, out_k, out_p)
-        if problem:
-            fail(problem)
+        uv_err, md_err, apart = k2_gate(args, kw, out_k, out_p, site, run)
         for r, s_p, s_k, part in apart:
             print(f"K2 N={n}: row {r} stopped after update {s_k} on the card "
                   f"and {s_p} in the plain twin (parting step {part:.6f} px, "
@@ -1031,7 +1118,7 @@ def _stage_hooks():
         (struct_opt, "optimize_points", "optimize_points"),
         (depth_filter, "update_seeds_combined", "update_seeds"),
         (fused, "fetch", "fetch"),
-        (frame_handler, "_kf_detect_program", "kf_detect"),
+        (frame_handler, "_kf_detect_program_batched", "kf_detect"),
         (frame_handler.FrameHandlerMono, "_dispatch_local_ba", "local_ba"),
         (lines, "detect_segments_tiled", "detect_segments_tiled"),
         (depth_filter, "scatter_new_point_seeds_blob", "kf_seed_install"),
@@ -1064,6 +1151,595 @@ def _instrument(hooks, totals):
         for owner, attr, orig in saved:
             setattr(owner, attr, orig)
     return undo
+
+
+# ---------------------------------------------------------------------------
+# This slice's path: BatchedVO (vmap mode, pipelined, bench.py's batched
+# configuration), its streams mode, and the keyframe-eviction soak.
+# ---------------------------------------------------------------------------
+
+BATCH = 8  # bench.py's BENCH_BATCH default
+SOLO_TOL_M = 2e-3  # batched against solo per-frame camera centres
+SOAK_FRAMES = 310
+SOAK_BLACKOUT = range(150, 153)
+SOAK_TAIL_ATE = 0.004  # tests/test_soak.py's bound (m)
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of counter pairs (x1, x2) under
+    the key (k1, k2), in uint32 numpy arithmetic."""
+    k1, k2 = np.uint32(k1), np.uint32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+            x[1] = x[1] ^ x[0]
+        x[0] = x[0] + ks[(i + 1) % 3]
+        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x
+
+
+def reference_ransac_draws(n_valid, n_hyp, seed=0):
+    """The JAX package's bootstrap RANSAC draws, in numpy:
+    `jax.random.randint(PRNGKey(seed), (n_hyp, 4), 0, n_valid)` with the
+    partitionable Threefry generator (key split in two, 32 bits of each
+    half per draw, reduced modulo n_valid as randint reduces them). A
+    `ransac_draws` callable for FrameHandlerMono, so that a port run can
+    start from the reference's bootstrap; tests/test_torch_reference_draws.py
+    holds it against jax.random.randint."""
+    with np.errstate(over="ignore"):
+        zero2 = np.zeros(2, np.uint32)
+        k_hi, k_lo = _threefry2x32(0, seed, zero2, np.arange(2, dtype=np.uint32))
+        n = n_hyp * 4
+        cnt = np.arange(n, dtype=np.uint32)
+        zero = np.zeros(n, np.uint32)
+        hi, lo = (np.bitwise_xor(*_threefry2x32(k_hi[j], k_lo[j], zero, cnt))
+                  for j in (0, 1))
+        span = np.uint32(max(n_valid, 1))
+        mult = np.uint32(65536) % span
+        mult = (mult * mult) % span
+        off = ((hi % span) * mult + lo % span) % span
+    return off.astype(np.int64).reshape(n_hyp, 4)
+
+
+def uint8_frames(imgs):
+    """bench.py's batched ingestion: frames as uint8 host arrays."""
+    return [np.clip(np.round(im.cpu().numpy()), 0, 255).astype(np.uint8)
+            for im in imgs]
+
+
+def staggered(frames, i, B):
+    """bench.py's stagger: sequence k runs k frames behind (its first k
+    frames repeat frame 0), so keyframes desynchronize across the batch."""
+    return [frames[max(0, i - k)] for k in range(B)]
+
+
+def _site_patches(site):
+    """Patches that label K2 launches with the call site being run."""
+    def at_site(orig, label):
+        def wrapped(*a, **k):
+            site[0] = label
+            try:
+                return orig(*a, **k)
+            finally:
+                site[0] = "other"
+        return wrapped
+
+    return [(o, a, at_site(getattr(o, a), label))
+            for o, a, label in _call_sites()]
+
+
+def _centres(results):
+    return np.stack([-r.R_f_w.T @ r.t_f_w for r in results])
+
+
+def phase_batched(cam, imgs, gt_centers, device, n_main):
+    """BatchedVO(mode="vmap") over BATCH sequences, default_config() with
+    pipelined=True, pipeline_depth=PIPE_DEPTH (bench.py's batched
+    configuration), 752x480 uint8 frames of the lines run staggered as
+    bench.py staggers them: n_main frames with the launch counts set to 0
+    before and read after, PIPE_DEPTH more under torch.profiler, flush().
+    Every K2 launch and every batched K1 input is captured. Gates: every
+    frame of every sequence delivered once; DEFAULT reached and kept; ATE
+    < 1% of each path; each sequence's synced carry equal to a fresh upload
+    of its map; one K1 launch per 10 keyframe requests (their 30 pyramid
+    images) of each batched detection;
+    sequences 0 and BATCH - 1 tracked again by solo pipelined handlers give
+    per-frame centres within SOLO_TOL_M."""
+    from plsvo_torch.ops import fast_score as fs
+    from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import pose_opt, sparse_align
+    from plsvo_torch.parallel.multi_vo import BatchedVO
+    from plsvo_torch.pipeline import fused
+    from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
+                                                    FrameHandlerMono)
+    from plsvo_torch.pipeline.state import validate_map
+    from plsvo_torch.utils import trajectory
+
+    kind = "batched"
+    B = BATCH
+    cfg = run_config("pipelined")
+    frames = uint8_frames(imgs)
+    n_all = n_main + PIPE_DEPTH
+    n_pyr = cfg.pipeline.n_pyr_levels
+    bvo = BatchedVO(cam, cfg, B, mode="vmap", device=device)
+    captured, k1_inputs, drains = [], [], []
+    site = ["other"]
+
+    def k2_capture(args, kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs), site[0]))
+
+    orig_levels = fs.fast_score_levels
+
+    def levels_capture(ims, *a):
+        if len(ims) > n_pyr:  # a batched keyframe detection
+            k1_inputs.append([im.clone() for im in ims])
+        return orig_levels(ims, *a)
+
+    flush_det = bvo._flush_detections
+
+    def flush_detections():
+        n_req, before = len(bvo._det_q), fs.launches
+        flush_det()
+        if n_req:
+            drains.append((n_req, fs.launches - before))
+
+    bvo._flush_detections = flush_detections
+    delivered = [[] for _ in range(B)]
+    calls = []  # (ms, every sequence DEFAULT after the call)
+
+    def track(i):
+        t0 = time.perf_counter()
+        rs = bvo.add_images(staggered(frames, i, B), i / 30.0)
+        calls.append(((time.perf_counter() - t0) * 1e3,
+                      all(st == STAGE_DEFAULT for st in bvo.stages)))
+        for b, r in enumerate(rs):
+            if r is not None:
+                delivered[b].append(r)
+
+    gn_calls = {}  # the last batched call of each GN loop
+
+    def keep_call(name, orig):
+        def wrapped(*a, **k):
+            R0 = a[4 if name == "sparse_img_align" else 1]
+            if R0.dim() == 3 and R0.shape[0] > 1:
+                gn_calls[name] = (a, k)
+            return orig(*a, **k)
+        return wrapped
+
+    undo = _patched([(ma, "capture", k2_capture),
+                     (fs, "fast_score_levels", levels_capture),
+                     (sparse_align, "sparse_img_align",
+                      keep_call("sparse_img_align",
+                                sparse_align.sparse_img_align)),
+                     (pose_opt, "optimize_pose",
+                      keep_call("optimize_pose", pose_opt.optimize_pose))]
+                    + _site_patches(site))
+    try:
+        fs.launches = 0
+        ma.launches = 0
+        for i in range(n_main):
+            track(i)
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+        timed = list(calls)
+        wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
+            lambda: [track(i) for i in range(n_main, n_all)])
+        for rs in bvo.flush():
+            for b, r in enumerate(rs):
+                if r is not None:
+                    delivered[b].append(r)
+    finally:
+        undo()
+    engaged = next((i for i, (_, ok) in enumerate(calls) if ok), None)
+    print(f"{kind}: {B} sequences, every one DEFAULT from call {engaged}; "
+          f"stages of sequence 0: "
+          + " ".join(r.stage[0] for r in delivered[0]), flush=True)
+    if bvo._mt_stack is None:
+        fail(f"{kind}: no chain of batched pipelined steps was live at the end")
+    carries = bvo.sync_carry()
+    ates, paths = [], []
+    for b, vo in enumerate(bvo.vos):
+        ids = [r.frame_id for r in delivered[b]]
+        if ids != list(range(n_all)):
+            fail(f"{kind}: sequence {b} delivered frames {ids}, not each of "
+                 f"0..{n_all - 1} once in order")
+        st = [r.stage for r in delivered[b]]
+        if STAGE_DEFAULT not in st:
+            fail(f"{kind}: sequence {b} never reached STAGE_DEFAULT")
+        fd = st.index(STAGE_DEFAULT)
+        if any(x != STAGE_DEFAULT for x in st[fd:]):
+            fail(f"{kind}: sequence {b} left STAGE_DEFAULT after frame {fd}")
+        est = _centres(delivered[b][fd:])
+        gt = gt_centers[[max(0, f - b) for f in ids[fd:]]]
+        if not np.isfinite(est).all():
+            fail(f"{kind}: sequence {b}: non-finite camera centres")
+        ate = trajectory.ate_rmse(est.astype(np.float64), gt.astype(np.float64))
+        path = float(np.linalg.norm(np.diff(gt, axis=0), axis=-1).sum())
+        ates.append(ate)
+        paths.append(path)
+        if ate >= 0.01 * path:
+            fail(f"{kind}: sequence {b} ATE {ate} >= 1% of its path {path}")
+        bad = fused.carry_mismatches(carries[b], fused.map_tables_upload(vo.map))
+        if bad:
+            fail(f"{kind}: sequence {b}'s synced carry differs from its "
+                 f"mirror in {bad}")
+        errs = validate_map(vo.map)
+        if errs:
+            fail(f"{kind}: sequence {b} map inconsistent: {errs[:5]}")
+    print(f"{kind}: ATE per sequence (% of its path) "
+          + ", ".join(f"{100 * a / p:.3f}" for a, p in zip(ates, paths))
+          + "; every frame delivered once; each synced carry equals its "
+          "mirror", flush=True)
+    per = bvo.detections_per_program()
+    bad_k1 = [(n, k) for n, k in drains if k != -(-n // per)]
+    print(f"{kind}: batched keyframe detections per drain (requests, K1 "
+          f"launches): {drains}", flush=True)
+    if not drains or bad_k1:
+        fail(f"{kind}: K1 launches per batched detection {drains}, not one "
+             f"per {per} requests ({per * n_pyr} pyramid images)")
+    sites = {}
+    for args, _, where in captured:
+        key = (where, args[0].shape[0])
+        sites[key] = sites.get(key, 0) + 1
+    print(f"{kind}: K2 launches by (call site, N): {sorted(sites.items())}",
+          flush=True)
+    caps = cfg.caps
+    n_rep = B * (caps.max_fts + 2 * caps.max_segs)
+    if sites.get(("reproject", n_rep), 0) < n_main - engaged - 1:
+        fail(f"{kind}: {sites.get(('reproject', n_rep), 0)} reprojection "
+             f"launches of N={n_rep}, not one per batched step")
+    # the solo handlers of the first and the last sequence
+    solo_err = {}
+    for b in (0, B - 1):
+        vo = FrameHandlerMono(cam, cfg, device=device)
+        got = [vo.add_image(frames[max(0, i - b)], i / 30.0)
+               for i in range(n_all)]
+        got = [r for r in got if r is not None] + vo.flush()
+        mine = {r.frame_id: r for r in delivered[b]
+                if r.stage == STAGE_DEFAULT}
+        both = [r for r in got if r.stage == STAGE_DEFAULT and r.frame_id in mine]
+        if len(both) < n_all - engaged - 2:
+            fail(f"{kind}: sequence {b}: the solo handler and the batch share "
+                 f"only {len(both)} DEFAULT frames")
+        d = np.linalg.norm(_centres(both) - _centres(
+            [mine[r.frame_id] for r in both]), axis=-1)
+        solo_err[b] = float(d.max())
+        print(f"{kind}: sequence {b} against a solo pipelined handler: "
+              f"{len(both)} common DEFAULT frames, centres max distance "
+              f"{d.max() * 1e3:.4f} mm (median {np.median(d) * 1e3:.4f})",
+              flush=True)
+        if d.max() >= SOLO_TOL_M:
+            fail(f"{kind}: sequence {b} centres {d.max()} m from the solo "
+                 f"handler's (limit {SOLO_TOL_M})")
+    gn = gn_iterations(gn_calls)
+    for name, (it_b, it_s) in gn.items():
+        print(f"{kind}: {name} of the last batched step: {it_b} GN "
+              f"iterations for the batch (every level, the slowest member's "
+              f"stop) against {it_s} for its sequences alone (mean "
+              f"{np.mean(it_s):.1f}): the frozen carries cost "
+              f"{100 * (it_b / np.mean(it_s) - 1):.1f}% more iterations than "
+              "a sequence's own", flush=True)
+    dflt = [ms for ms, ok in timed if ok]
+    steady = dflt[len(dflt) // 2:] if len(dflt) > 6 else dflt
+    step_ms = float(np.mean(steady))
+    fps = B * 1e3 / step_ms
+    n = PIPE_DEPTH
+    idle = 100 - 100 * busy_ms / n / step_ms if busy_ms > 0 else None
+    print(f"{kind}: aggregate fps as bench.py computes it (B / mean of the "
+          f"last half of the all-DEFAULT add_images calls, {len(steady)} "
+          f"calls): {fps:.2f}; mean call {np.mean(steady):.2f} ms, p90 "
+          f"{np.percentile(steady, 90):.2f} ms", flush=True)
+    print(f"profile: batched window ({n} steps, one drain window, under "
+          f"torch.profiler): wall {wall_ms / n:.2f} ms/step, device busy "
+          + (f"{busy_ms / n:.3f} ms/step ({100 - idle:.2f}% of the "
+             f"unprofiled {step_ms:.2f} ms/step: idle {idle:.2f}%)"
+             if busy_ms > 0 else "not measured (the profiler saw no device time)")
+          + f"; per batched step: {n_launch / n:.0f} kernel launches, "
+          f"{n_sync / n:.1f} host syncs", flush=True)
+    return dict(kind=kind, captured=captured, launches=launches, fps=fps,
+                gn=gn,
+                k1_inputs=k1_inputs, drains=drains, ates=ates, paths=paths,
+                solo_err=solo_err, launches_per_step=n_launch / n,
+                syncs_per_step=n_sync / n,
+                idle=idle,
+                k2_sites=sites, engaged=engaged)
+
+
+def gn_iterations(calls):
+    """GN iterations (one 6x6 solve each) of each captured batched call of
+    sparse_img_align / optimize_pose, run again for the batch and for each
+    of its sequences alone: {name: (batch iterations, [per sequence])}."""
+    from plsvo_torch.ops import pose_opt, sparse_align
+
+    out = {}
+    for name, (a, k) in sorted(calls.items()):
+        mod = sparse_align if name == "sparse_img_align" else pose_opt
+        n = [0]
+        orig = mod.solve_psd
+
+        def counting(*x, **y):
+            n[0] += 1
+            return orig(*x, **y)
+
+        mod.solve_psd = counting
+        try:
+            getattr(mod, name)(*a, **k)
+            it_b, it_s = n[0], []
+            B = a[4 if name == "sparse_img_align" else 1].shape[0]
+            for b in range(B):
+                n[0] = 0
+                if name == "sparse_img_align":
+                    one = ([p[b] for p in a[0]], [p[b] for p in a[1]],
+                           type(a[2])(*[x[b] for x in a[2]]),
+                           type(a[3])(*[None if x is None else x[b]
+                                        for x in a[3]]), a[4][b], a[5][b])
+                    mod.sparse_img_align(*one, *a[6:], **k)
+                else:
+                    mod.optimize_pose(type(a[0])(*[x[b] for x in a[0]]),
+                                      a[1][b], a[2][b], *a[3:], **k)
+                it_s.append(n[0])
+        finally:
+            mod.solve_psd = orig
+        out[name] = (it_b, it_s)
+    return out
+
+
+def phase_streams(cam, imgs, device, B=2, n=20):
+    """BatchedVO(mode="streams"): B pipelined handlers whose dispatches
+    interleave, on n staggered frames; every frame delivered once."""
+    from plsvo_torch.parallel.multi_vo import BatchedVO
+    from plsvo_torch.pipeline.frame_handler import STAGE_DEFAULT
+
+    frames = uint8_frames(imgs[:n])
+    bvo = BatchedVO(cam, run_config("pipelined"), B, mode="streams",
+                    device=device)
+    got = [[] for _ in range(B)]
+    t0 = time.perf_counter()
+    for i in range(n):
+        for b, r in enumerate(bvo.add_images(staggered(frames, i, B), i / 30.0)):
+            if r is not None:
+                got[b].append(r)
+    for rs in bvo.flush():
+        for b, r in enumerate(rs):
+            if r is not None:
+                got[b].append(r)
+    for b in range(B):
+        ids = [r.frame_id for r in got[b]]
+        if ids != list(range(n)):
+            fail(f"streams: sequence {b} delivered {ids}, not 0..{n - 1} once")
+    print(f"streams: {B} handlers, {n} frames each delivered once in "
+          f"{time.perf_counter() - t0:.1f} s; DEFAULT frames "
+          f"{[sum(r.stage == STAGE_DEFAULT for r in g) for g in got]}",
+          flush=True)
+
+
+def _soak_pose(i: int):
+    """tests/test_soak.py's orbit: an arc above the plane (radius 1 m, half
+    a revolution over 450 frames) with a gentle yaw wobble."""
+    th = 2 * np.pi * i / 900.0
+    yaw = 0.25 * np.sin(th)
+    R = np.asarray([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                    [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    t = np.asarray([np.sin(th), 0.3 * (np.cos(th) - 1.0), -2.0], np.float32)
+    return R, t
+
+
+def phase_soak(device, depth, blackout, ransac_draws=None):
+    """tests/test_soak.py with the port alone, pipelined at `depth`:
+    320x240, fast_config() (an 8-slot keyframe ring), its orbit and scene,
+    with `blackout` a blackout at frames 150-152. Gates: test_soak's
+    asserts over the delivered results (a failed frame's successors in
+    flight are dropped; without the blackout its relocalization asserts
+    drop out and the tail is every frame after the first DEFAULT one),
+    at least one keyframe eviction, validate_map clean, and after flush()
+    the synced carry equal to a fresh upload of the mirror.
+
+    At depth 12 the blackout is not survivable, in the JAX package as in
+    the port (their CPU runs, PERF.md): the failure is found 12-24 frames
+    late, and relocalization keeps retrying the keyframe nearest the last
+    good frame, whose 26 point features miss the reference's > 30 rule; by
+    frame 150 the ring has only just filled. So the smoke runs the soak
+    twice: at depth 12 without the blackout (evictions at bench.py's
+    depth, where the eviction list is 24 slots wide) and at depth 4 with
+    it (every test_soak assert).
+
+    The tail ATE (the Sim3 ATE of the last 140 frames) is held to
+    test_soak's 0.004 m (3x its sync 0.0014) at both depths. At depth 12 it
+    depends on the bootstrap's RANSAC draws in both packages
+    (tests/soak_seeds_d12.py on the CPU, the JAX package's draws of seeds
+    0-5: JAX 0.0015-0.0083 m and once lost, the port 0.0015-0.0077 m and
+    lost with the same seed), so the depth-12 soak passes
+    `ransac_draws`=reference_ransac_draws, the reference's own bootstrap
+    (seed 0: JAX 0.00249 m, the port 0.00248 m on the same frames)."""
+    from plsvo_torch.camera import PinholeCamera
+    from plsvo_torch.config import fast_config
+    from plsvo_torch.pipeline import fused
+    from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
+                                                    FrameHandlerMono)
+    from plsvo_torch.pipeline.state import MapState, validate_map
+    from plsvo_torch.utils import synthetic, trajectory
+
+    t_start = time.perf_counter()
+    n_frames = SOAK_FRAMES
+    cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
+    scene = synthetic.make_scene(np.random.default_rng(7), size=2048,
+                                 texel_size=0.004)
+    poses = [_soak_pose(i) for i in range(n_frames)]
+    imgs = []
+    for c in range(0, n_frames, 64):
+        part = poses[c:c + 64]
+        imgs += list(synthetic.render_batch_aa(
+            scene, cam, [R for R, _ in part], [t for _, t in part], ss=2,
+            device=device).cpu().numpy())
+    black = np.zeros((240, 320), np.float32)
+    cfg = fast_config()
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, pipelined=True, pipeline_depth=depth))
+    dark = SOAK_BLACKOUT if blackout else range(0)
+    evictions = []
+    orig_remove = MapState.remove_keyframe
+
+    def counting_remove(self, slot):
+        evictions.append(slot)
+        return orig_remove(self, slot)
+
+    vo = FrameHandlerMono(cam, cfg, device=device, ransac_draws=ransac_draws)
+    delivered, hwm = [], []
+    undo = _patched([(MapState, "remove_keyframe", counting_remove)])
+    try:
+        for i in range(n_frames):
+            img = black if i in dark else imgs[i]
+            r = vo.add_image(img, i / 30.0)
+            if r is not None:
+                delivered.append(r)
+            hwm.append(int((vo.map.pt_status > 0).sum()))
+        delivered += vo.flush()
+    finally:
+        undo()
+    ids = [r.frame_id for r in delivered]
+    if len(set(ids)) != len(ids) or ids != sorted(ids):
+        fail(f"soak: frames delivered out of order or twice: {ids}")
+    by_id = {r.frame_id: r for r in delivered}
+    stages = [by_id[i].stage if i in by_id else None for i in range(n_frames)]
+    problems = []
+    if STAGE_DEFAULT not in stages:
+        fail("soak: never reached STAGE_DEFAULT")
+    fd = stages.index(STAGE_DEFAULT)
+    if fd >= 25:
+        problems.append(f"first DEFAULT frame {fd} (>= 25)")
+    end = SOAK_BLACKOUT[0] if blackout else n_frames
+    if not all(x == STAGE_DEFAULT for x in stages[fd:end]):
+        problems.append("tracking left DEFAULT before the blackout"
+                        if blackout else "tracking left DEFAULT")
+    back = None
+    if blackout:
+        # a relocalization attempt's own result is RELOCALIZING; one that
+        # succeeds at once resumes a frame whose result comes later
+        if vo.n_relocalizations < 1:
+            problems.append("the blackout forced no relocalization")
+        recov = stages[SOAK_BLACKOUT[-1] + 1:]
+        if STAGE_DEFAULT in recov:
+            back = recov.index(STAGE_DEFAULT) + SOAK_BLACKOUT[-1] + 1
+            tail = stages[back:]
+            if back - SOAK_BLACKOUT[-1] >= 20:
+                problems.append(f"recovery took {back - SOAK_BLACKOUT[-1]} "
+                                "frames")
+            if tail.count(STAGE_DEFAULT) <= 0.9 * len(tail):
+                problems.append(f"only {tail.count(STAGE_DEFAULT)} of "
+                                f"{len(tail)} tail frames DEFAULT")
+        else:
+            problems.append("tracking never recovered after the blackout")
+    n_kf = sum(r.is_keyframe for r in delivered)
+    cap = cfg.caps.max_kfs
+    if n_kf < cap + 2 or vo.map.n_keyframes() > cap:
+        problems.append(f"{n_kf} keyframes made, {vo.map.n_keyframes()} held "
+                        f"(ring of {cap})")
+    idx = [i for i in range(n_frames - 140, n_frames)
+           if stages[i] == STAGE_DEFAULT]
+    ate = None
+    if len(idx) > 100:
+        est = _centres([by_id[i] for i in idx])
+        gtp = np.stack([poses[i][1] for i in idx])
+        ate = trajectory.ate_rmse(est.astype(np.float64),
+                                  gtp.astype(np.float64), with_scale=True)
+        if ate >= SOAK_TAIL_ATE:
+            problems.append(f"tail ATE {ate} >= {SOAK_TAIL_ATE}")
+    else:
+        problems.append(f"only {len(idx)} DEFAULT frames in the last 140")
+    full = [i for i in range(n_frames) if stages[i] == STAGE_DEFAULT]
+    gtf = np.stack([poses[i][1] for i in full]).astype(np.float64)
+    ate_all = trajectory.ate_rmse(_centres([by_id[i] for i in full])
+                                  .astype(np.float64), gtf)
+    path = float(np.linalg.norm(np.diff(gtf, axis=0), axis=-1).sum())
+    caps = cfg.caps
+    if max(hwm) >= 0.9 * caps.max_points:
+        problems.append(f"live point high-water mark {max(hwm)}")
+    if (vo.map.pt_status == 0).sum() <= 0.1 * caps.max_points:
+        problems.append("point table nearly full")
+    if (vo.map.ln_status > 0).sum() >= 0.9 * caps.max_lines:
+        problems.append("line table nearly full")
+    if vo._seed_alive.sum() > caps.max_seeds:
+        problems.append("seed table over capacity")
+    errs = validate_map(vo.map)
+    if errs:
+        problems.append(f"validate_map: {errs[:5]}")
+    bad = fused.carry_mismatches(vo.sync_carry(), fused.map_tables_upload(vo.map))
+    if bad:
+        problems.append(f"the synced carry differs from the mirror in {bad}")
+    label = f"soak (depth {depth}, {'blackout' if blackout else 'no blackout'})"
+    print(f"{label}: {n_frames} frames in "
+          f"{time.perf_counter() - t_start:.1f} s: first DEFAULT {fd}, "
+          f"relocalizations {vo.n_relocalizations}, back in DEFAULT at {back}, "
+          f"{len(delivered)} results delivered, {n_kf} keyframes made, "
+          f"{len(evictions)} keyframe evictions, {vo.map.n_keyframes()} held; "
+          f"tail ATE {ate} (test_soak's bound 0.004), ATE over all DEFAULT "
+          f"frames {ate_all:.6f} m over a {path:.3f} m path "
+          f"({100 * ate_all / path:.3f}%); live points high-water {max(hwm)}; "
+          "validate_map "
+          f"{'clean' if not errs else errs[:3]}; carry "
+          f"{'equals the mirror' if not bad else bad}", flush=True)
+    if not evictions:
+        problems.append("no keyframe was evicted")
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+    return dict(evictions=len(evictions), n_kf=n_kf, ate=ate, ate_all=ate_all,
+                path=path,
+                relocalizations=vo.n_relocalizations, back=back,
+                depth=depth, blackout=blackout)
+
+
+def phase_k1_batched(k1_inputs):
+    """K1 at the batched detection's shapes: the largest captured batch of
+    R x levels pyramid images, kernel (one launch per 32 images) against
+    the plain twin: masks equal, scores within rtol 1e-4 / atol 1e-3 more
+    than 8 px from the border; then its per-call, device and plain times
+    and its bound."""
+    import torch
+
+    from plsvo_torch.ops import fast_score as fs
+
+    if not k1_inputs:
+        fail("K1: no batched keyframe detection was captured")
+    ims = max(k1_inputs, key=len)
+    before = fs.launches
+    outs = fs.fast_score_levels_cuda(ims, 10.0)
+    n_launch = fs.launches - before
+    if n_launch != -(-len(ims) // 32):
+        fail(f"K1: {len(ims)} images took {n_launch} launches")
+    worst = 0.0
+    for im, (m_k, s_k) in zip(ims, outs):
+        m_p, s_p = fs.fast_score_plain(im, 10.0)
+        if not bool((m_k == m_p).all()):
+            fail(f"K1 batched {tuple(im.shape)}: masks differ in "
+                 f"{int((m_k != m_p).sum())} pixels")
+        d = (s_k - s_p)[8:-8, 8:-8].abs()
+        lim = 1e-3 + 1e-4 * s_p[8:-8, 8:-8].abs()
+        if not bool((d <= lim).all()):
+            fail(f"K1 batched {tuple(im.shape)}: score off by "
+                 f"{float(d.max())} away from the border")
+        worst = max(worst, float(d.max()))
+    torch.cuda.synchronize()
+    px = sum(im.numel() for im in ims)
+    f = lambda: fs.fast_score_levels_cuda(ims, 10.0)  # noqa: E731
+    ms = cuda_time_ms(f, reps=10, inner=5)
+    dev = kernel_device_ms(f, "fast_score_kernel")
+    plain = cuda_time_ms(lambda: [fs.fast_score_plain(im, 10.0) for im in ims],
+                         reps=3, inner=2)
+    t_bytes = px * K1_BYTES_PER_PX / HBM_BYTES_PER_S
+    t_ops = px * K1_OPS_PER_PX / F32_OPS_PER_S
+    bound = 1e3 * max(t_bytes, t_ops)
+    shapes = [list(im.shape) for im in ims]
+    print(f"K1 batched detection: {len(ims)} images ({px} px) in {n_launch} "
+          f"launch(es), masks equal, score max abs err {worst:.3e} away from "
+          f"the border; kernel {ms:.4f} ms per call (device {dev:.4f} ms per "
+          f"launch), plain {plain:.4f} ms, bound {bound:.5f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'})", flush=True)
+    return dict(n_images=len(ims), shapes=shapes, ms=ms, kernel_ms=dev,
+                plain_ms=plain, bound_ms=bound, max_abs_err=worst,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_profile(vo, imgs, first, n_win, base_ms):
@@ -1179,9 +1855,16 @@ def main():
     sl = phase_run("lines", cam, imgs, gt, device, n_main)
     sp = phase_run("points", cam, imgs_p, gt_p, device, n_pts)
     so = phase_run("lineonly", cam, imgs_l, gt_l, device, n_lo)
+    # no profiler session before these: one slows the host work after it
+    soaks = [phase_soak(device, PIPE_DEPTH, False,
+                        ransac_draws=reference_ransac_draws),
+             phase_soak(device, 4, True)]
+    phase_streams(cam, imgs, device)
     spp = phase_pipelined(cam, imgs, gt, device, n_main, sl)
-    k2 = phase_k2(sl["captured"] + sp["captured"] + so["captured"]
-                  + spp["captured"])
+    sb8 = phase_batched(cam, imgs, gt, device, n_main)
+    k2 = phase_k2([c + (r["kind"],) for r in (sl, sp, so, spp, sb8)
+                   for c in r["captured"]])
+    k1b = phase_k1_batched(sb8["k1_inputs"])
     sb = phase_ba(sl, device)
     phase_profile(sl["vo"], imgs, n_main, n_win, sl["ms_median"])
 
@@ -1243,8 +1926,8 @@ def main():
             f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
             dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
                                    for a, k, _ in runs], "mixed_align_kernel")
-            k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
             b_ms, b_by = k2_bound_ms(a, k2_active_row_iters(a, k))
+            k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
             print(f"timing: K2 {run} run, {where} N={n}: {len(runs)} launches "
                   f"(capture pass); the one with the most valid rows "
                   f"({int(a[12].sum())}): device {dev[hard]:.4f} ms, kernel "
@@ -1270,6 +1953,34 @@ def main():
         else:
             fail(f"{fn}: no reprojection call captured")
     print(msg, flush=True)
+    # K2 at the batched reprojection's shape: the B x 384-row launch with
+    # the most valid rows
+    n_k2b = BATCH * n_k2
+    reproj_b = [c for c in sb8["captured"]
+                if c[2] == "reproject" and c[0][0].shape[0] == n_k2b]
+    if not reproj_b:
+        fail(f"K2 captured no batched reprojection launch at N={n_k2b}")
+    args_b, kw_b, _ = max(reproj_b, key=lambda c: int(c[0][12].sum()))
+    k2b_ms = cuda_time_ms(lambda: ma.mixed_align_cuda(*args_b, **kw_b))
+    k2b_dev = kernel_device_ms(lambda: ma.mixed_align_cuda(*args_b, **kw_b),
+                               "mixed_align_kernel")
+    k2b_plain = cuda_time_ms(lambda: ma.mixed_align_plain(*args_b, **kw_b),
+                             reps=5, inner=2)
+    k2b_bound, k2b_by = k2_bound_ms(args_b, k2_active_row_iters(args_b, kw_b))
+    print(f"timing: K2 batched reprojection N={n_k2b} ({int(args_b[12].sum())} "
+          f"valid rows) kernel {k2b_ms:.4f} ms per call (device {k2b_dev:.4f} "
+          f"ms), plain {k2b_plain:.4f} ms, bound {k2b_bound:.6f} ms ({k2b_by}; "
+          f"{100 * k2b_bound / k2b_dev:.1f}% of its device time)", flush=True)
+    for (where, n), cnt in sorted(sb8["k2_sites"].items()):
+        runs = [c for c in sb8["captured"]
+                if c[2] == where and c[0][0].shape[0] == n]
+        if n < BATCH * 48 or not runs:
+            continue
+        dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
+                               for a, k, _ in runs[-6:]], "mixed_align_kernel")
+        print(f"timing: K2 batched run, {where} N={n}: {cnt} launches; device "
+              f"over the last {len(dev)}: median {np.median(dev):.4f} ms, "
+              f"max {max(dev):.4f} ms", flush=True)
 
     nf = sl["n_frames"]
     k2_uv = max(e[2] for e in k2.values())
@@ -1285,7 +1996,11 @@ def main():
     # update apart on the two sides included (phase 7 counts them).
     # "launches" counts the main path's run (default_config(): points +
     # lines + local BA); "launches_points_only", "launches_line_only" and
-    # "launches_pipelined" the other three runs.
+    # "launches_pipelined" the other three runs; "launches_batched" the
+    # batched run's n_main frames (BATCH sequences, vmap mode), and the
+    # "_batched" times are at that run's shapes (K1: the largest batched
+    # keyframe detection; K2: the B x 384-row reprojection launch with the
+    # most valid rows).
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda",
          "source": "plsvo_torch/csrc/fast_score.cu",
@@ -1299,7 +2014,13 @@ def main():
          "max_err": k1_rel, "max_err_kind": "rel_score",
          "ms": k1_ms, "kernel_ms": k1_dev, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "shape": levels},
+         "shape": levels,
+         "launches_batched": sb8["launches"]["fast_score"],
+         "shape_batched": k1b["shapes"], "ms_batched": k1b["ms"],
+         "kernel_ms_batched": k1b["kernel_ms"],
+         "plain_ms_batched": k1b["plain_ms"],
+         "bound_ms_batched": k1b["bound_ms"],
+         "max_abs_err_batched": k1b["max_abs_err"]},
         {"name": "mixed_align", "route": "cuda",
          "source": "plsvo_torch/csrc/mixed_align.cu",
          "replaces": "plsvo_tpu/ops/pallas_align.py:163",
@@ -1315,7 +2036,11 @@ def main():
          "rows_stopped_an_update_apart": sum(e[4] for e in k2.values()),
          "kernel_ms_run_median": k2_run[("lines", "reproject", n_k2)][0],
          "kernel_ms_run_max": k2_run[("lines", "reproject", n_k2)][1],
-         "shape": [n_k2]},
+         "shape": [n_k2],
+         "launches_batched": sb8["launches"]["mixed_align"],
+         "shape_batched": [n_k2b], "ms_batched": k2b_ms,
+         "kernel_ms_batched": k2b_dev, "plain_ms_batched": k2b_plain,
+         "bound_ms_batched": k2b_bound, "bound_by_batched": k2b_by},
     ]}
     print(f"summary: lines run ATE {sl['ate']:.6f} m, per-frame ms median "
           f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f} (keyframe frames p90 "
@@ -1329,7 +2054,16 @@ def main():
           f"line landmarks; pipelined run (depth {PIPE_DEPTH}) ATE "
           f"{spp['ate']:.6f} m, bench.py's per-frame mean {spp['bench_mean']:.2f} "
           f"p90 {spp['bench_p90']:.2f} ms against the sync lines run's "
-          f"{sl['bench_mean']:.2f} / {sl['bench_p90']:.2f} ms", flush=True)
+          f"{sl['bench_mean']:.2f} / {sl['bench_p90']:.2f} ms; batched run "
+          f"(B={BATCH}, vmap, depth {PIPE_DEPTH}) {sb8['fps']:.2f} aggregate "
+          f"fps (B / the pipelined run's mean: "
+          f"{BATCH * 1e3 / spp['bench_mean']:.2f}), "
+          f"{sb8['launches_per_step']:.0f} launches and "
+          f"{sb8['syncs_per_step']:.1f} host syncs per batched step, idle "
+          f"{sb8['idle']}%; soaks " + ", ".join(
+              f"depth {k['depth']}{' with blackout' if k['blackout'] else ''}: "
+              f"{k['evictions']} keyframe evictions, tail ATE {k['ate']}"
+              for k in soaks), flush=True)
     print(json.dumps(report), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -58,10 +58,11 @@ def solve3x3(A: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tensor
 
 
 def solve_psd(A: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
-    """x = (A + eps*I)^-1 b for ONE small SPD system via unrolled Cholesky.
-    Returns NaNs when A is not PD (callers treat NaN steps as bad)."""
+    """x = (A + eps*I)^-1 b for small SPD systems (..., n, n) via unrolled
+    Cholesky, one per leading index. Returns NaNs when A is not PD (callers
+    treat NaN steps as bad)."""
     n = A.shape[-1]
-    a = [[A[i, j] + (eps if i == j else 0.0) for j in range(n)]
+    a = [[A[..., i, j] + (eps if i == j else 0.0) for j in range(n)]
          for i in range(n)]
     L = [[None] * n for _ in range(n)]
     for j in range(n):
@@ -77,7 +78,7 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tenso
             L[i][j] = s * inv_d
     y = [None] * n
     for i in range(n):
-        s = b[i]
+        s = b[..., i]
         for k in range(i):
             s = s - L[i][k] * y[k]
         y[i] = s / L[i][i]
@@ -87,4 +88,4 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tenso
         for k in range(i + 1, n):
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
-    return torch.stack(x)
+    return torch.stack(x, -1)

@@ -168,38 +168,45 @@ def pack_pyramid_atlas_flat(pyr_stack) -> FlatAtlas:
 # ---------------------------------------------------------------------------
 
 
-def gather_windows_raw(img, corner_i, wp: int):
+def gather_windows_raw(img, corner_i, wp: int, seq=None):
     """(N, wp, wp) raw windows at integer corners (N, 2) (u, v), already
-    clipped to [0, max(dim - wp, 0)]; images smaller than wp are zero-padded."""
-    H, W = img.shape
+    clipped to [0, max(dim - wp, 0)]; images smaller than wp are zero-padded.
+    With `seq` (N,), img is a batch (B, H, W) and row n reads image
+    seq[n]."""
+    H, W = img.shape[-2:]
     if H < wp or W < wp:
         img = F.pad(img, (0, max(wp - W, 0), 0, max(wp - H, 0)))
     d = torch.arange(wp, device=img.device)
     rows = corner_i[:, 1:2].long() + d[None]  # (N, wp)
     cols = corner_i[:, 0:1].long() + d[None]
-    return img[rows[:, :, None], cols[:, None, :]]
+    if seq is None:
+        return img[rows[:, :, None], cols[:, None, :]]
+    return img[seq.long()[:, None, None], rows[:, :, None], cols[:, None, :]]
 
 
-def gather_patch_windows(img, uv_center, wp: int):
+def gather_patch_windows(img, uv_center, wp: int, seq=None):
     """(win, corner): windows centred at uv_center; the corner is clamped
-    into the image, so a window near the border shifts."""
-    H, W = img.shape
+    into the image, so a window near the border shifts. `seq` as in
+    gather_windows_raw."""
+    H, W = img.shape[-2:]
     ci = torch.floor(uv_center - (wp / 2.0 - 1.0)).to(torch.int64)
     cu = ci[:, 0].clamp(0, max(W - wp, 0))
     cv = ci[:, 1].clamp(0, max(H - wp, 0))
     c = torch.stack([cu, cv], -1)
-    return gather_windows_raw(img, c, wp), c.to(uv_center.dtype)
+    return gather_windows_raw(img, c, wp, seq), c.to(uv_center.dtype)
 
 
-def gather_patch_windows_atlas(atlas, x_offsets, uv_center, level, wp: int):
+def gather_patch_windows_atlas(atlas, x_offsets, uv_center, level, wp: int,
+                               seq=None):
     """gather_patch_windows through a pyramid atlas: uv_center is in each
-    feature's own level coords; corner is returned in level coords."""
+    feature's own level coords; corner is returned in level coords. With
+    `seq`, atlas is a batch (B, H, W_total) and row n reads atlas seq[n]."""
     H, Wt = atlas.shape[-2:]
     ci = torch.floor(uv_center - (wp / 2.0 - 1.0)).to(torch.int64)
     xo = x_offsets[level]
     cu_flat = (ci[:, 0] + xo).clamp(0, max(Wt - wp, 0))
     cv = ci[:, 1].clamp(0, max(H - wp, 0))
-    win = gather_windows_raw(atlas, torch.stack([cu_flat, cv], -1), wp)
+    win = gather_windows_raw(atlas, torch.stack([cu_flat, cv], -1), wp, seq)
     return win, torch.stack([cu_flat - xo, cv], -1).to(uv_center.dtype)
 
 

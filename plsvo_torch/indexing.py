@@ -85,19 +85,48 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
 
 
 def top_k_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries; ties go to the lower
-    index, as `jax.lax.top_k` does (torch.topk promises no tie order)."""
-    v, i = torch.sort(x, descending=True, stable=True)
-    return v[:k], i[:k]
+    """(values, indices) of the k largest entries along the last axis; ties
+    go to the lower index, as `jax.lax.top_k` does (torch.topk promises no
+    tie order)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
 
 
 def nonzero_padded(mask: torch.Tensor, size: int, fill: int):
-    """`jnp.nonzero(mask, size=size, fill_value=fill)` for a 1-D mask,
-    without a host sync: each True entry scatters its index to its rank;
-    entries past `size` land in a discarded dump slot."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask.long(), 0) - 1
+    """`jnp.nonzero(mask, size=size, fill_value=fill)` along the last axis
+    of a mask (any leading batch axes), without a host sync: each True
+    entry scatters its index to its rank; entries past `size` land in a
+    discarded dump slot."""
+    n = mask.shape[-1]
+    rank = torch.cumsum(mask.long(), -1) - 1
     dest = torch.where(mask & (rank < size), rank, torch.full_like(rank, size))
-    out = torch.full((size + 1,), fill, dtype=torch.long, device=mask.device)
-    out.scatter_(0, dest, torch.arange(n, device=mask.device))
-    return out[:size]
+    out = torch.full(mask.shape[:-1] + (size + 1,), fill, dtype=torch.long,
+                     device=mask.device)
+    out.scatter_(-1, dest, torch.arange(n, device=mask.device).expand_as(dest))
+    return out[..., :size]
+
+
+def take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-sequence row gather: tab (B, N, ...) indexed by idx (B, ...) in
+    each sequence's own rows, tab[b, idx[b, ...]]."""
+    B = tab.shape[0]
+    b = torch.arange(B, device=idx.device).view((B,) + (1,) * (idx.dim() - 1))
+    return tab[b, idx.long()]
+
+
+def seq_of_rows(B: int, n: int, device) -> torch.Tensor:
+    """(B * n,) sequence index of each row of a (B, n) table flattened."""
+    return torch.arange(B, device=device).repeat_interleave(n)
+
+
+def flat_rows(idx: torch.Tensor, n: int, valid=None) -> torch.Tensor:
+    """Rows idx (B, ...) of per-sequence tables of n rows, as rows of the
+    tables flattened to (B * n, ...); where `valid` is False (or idx lies
+    outside [0, n)) the row is B * n, which a scatter_drop drops."""
+    B = idx.shape[0]
+    base = (torch.arange(B, device=idx.device) * n).view(
+        (B,) + (1,) * (idx.dim() - 1))
+    ok = (idx >= 0) & (idx < n)
+    if valid is not None:
+        ok = ok & valid
+    return torch.where(ok, idx.long() + base, torch.full_like(idx.long(), B * n))

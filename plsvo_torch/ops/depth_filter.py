@@ -4,7 +4,10 @@ Port of `plsvo_tpu/ops/depth_filter.py` (Vogiatzis & Hernandez Gaussian x
 Beta model; all seeds update in one batched pass per frame). A line seed is
 two endpoint seeds that share their Beta parameters: both endpoints run the
 point-seed chain, concatenated with the point seeds into one batch
-(`update_seeds_combined`), and update only when both matched.
+(`update_seeds_combined`), and update only when both matched. A leading
+batch axis of B sequences puts every sequence's seeds through the same
+batch (the JAX package's vmap), each row with its own sequence's poses and
+images.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from plsvo_torch import lie
 from plsvo_torch.batlin import inv2x2
 from plsvo_torch.device import resolve_device
-from plsvo_torch.indexing import scatter_drop, to_int32, top_k_stable
+from plsvo_torch.indexing import (flat_rows, scatter_drop, seq_of_rows, take,
+                                  to_int32, top_k_stable)
 from plsvo_torch.ops import matcher as matcher_ops
 from plsvo_torch.ops.feature_align import align_mixed_atlas, ref_patch_gradients
 
@@ -137,11 +141,14 @@ class SeedUpdateResult(NamedTuple):
     skipped: torch.Tensor  # (S,) budget-starved this frame
 
 
-def _rel_pose(seeds, kf_R_w, kf_t_w, R_w_cur, t_w_cur):
+def _rel_pose(seeds, seq, kf_R_w, kf_t_w, R_w_cur, t_w_cur):
+    """Per seed row: T_cur_ref from its anchor keyframe of its own sequence
+    (seq) to that sequence's current frame."""
     kf = seeds.kf_idx.long()
     R_cw, t_cw = lie.inverse(R_w_cur, t_w_cur)
-    R_cr = torch.einsum("ij,sjk->sik", R_cw, kf_R_w[kf])
-    t_cr = torch.einsum("ij,sj->si", R_cw, kf_t_w[kf]) + t_cw
+    R_cw = R_cw[seq]
+    R_cr = torch.einsum("sij,sjk->sik", R_cw, kf_R_w[seq, kf])
+    t_cr = torch.einsum("sij,sj->si", R_cw, kf_t_w[seq, kf]) + t_cw[seq]
     return R_cr, t_cr
 
 
@@ -149,29 +156,58 @@ def _mv(R, x):
     return torch.einsum("sij,sj->si", R, x)
 
 
+def _per_row(batch_counter, seq):
+    """A per-sequence scalar (python number, or (B,) tensor) per row."""
+    return batch_counter[seq] if torch.is_tensor(batch_counter) else batch_counter
+
+
+def _flat(table, B: int, S: int):
+    return type(table)(*[a.reshape((B * S,) + a.shape[2:]) for a in table])
+
+
+def _unflat(table, B: int, S: int):
+    return type(table)(*[a.reshape((B, S) + a.shape[1:]) for a in table])
+
+
+def _top_rows(key, k: int):
+    """Per sequence, the k rows of (B, S) key with the largest values (ties
+    to the lower row), as (values (B, k), rows of the flattened (B * S)
+    table (B * k,))."""
+    B, S = key.shape
+    v, i = top_k_stable(key, k)
+    return v, (i + torch.arange(B, device=key.device)[:, None] * S).reshape(-1)
+
+
 def update_point_seeds(seeds: PointSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
-                       R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter: int, *,
+                       R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter, *,
                        patch_size: int = 8, n_epi_steps: int = 64,
                        max_seed_kfs: int = 3, sigma_conv_factor: float = 200.0,
                        max_search: int = 0) -> SeedUpdateResult:
-    """One frame of seed updates, all seeds at once: epipolar search in the
-    [mu - sigma, mu + sigma] band (budgeted to the longest `max_search`
-    bands; sub-2px bands align directly), mixed 2-D/1-D refinement,
-    triangulation and the Bayes update."""
+    """One frame of seed updates, all seeds of all B sequences at once:
+    epipolar search in the [mu - sigma, mu + sigma] band (budgeted to each
+    sequence's longest `max_search` bands; sub-2px bands align directly),
+    mixed 2-D/1-D refinement (one batch, one K2 launch), triangulation and
+    the Bayes update. Seed tables (B, S, ...), keyframe poses (B, K, ...),
+    images (B, h, w), current poses (B, 3, 3); batch_counter a number or
+    (B,) tensor."""
     from plsvo_torch.image import pack_pyramid_atlas
 
     f32 = torch.float32
-    S = seeds.mu.shape[0]
+    B, S0 = seeds.mu.shape
     dev = seeds.mu.device
-    alive = seeds.alive & ((batch_counter - seeds.batch_id) <= max_seed_kfs)
-    R_cr, t_cr = _rel_pose(seeds, kf_R_w, kf_t_w, R_w_cur, t_w_cur)
+    seq = seq_of_rows(B, S0, dev)
+    seeds = _flat(seeds, B, S0)
+    S = B * S0
+    alive = seeds.alive & ((_per_row(batch_counter, seq) - seeds.batch_id)
+                           <= max_seed_kfs)
+    R_cr, t_cr = _rel_pose(seeds, seq, kf_R_w, kf_t_w, R_w_cur, t_w_cur)
     depth = 1.0 / seeds.mu.clamp_min(1e-10)
     xyz_cur = _mv(R_cr, seeds.f * depth[:, None]) + t_cr
     z_ok = xyz_cur[:, 2] > 0.1
     zc = xyz_cur[:, 2].clamp_min(1e-6)
     uv_cur = torch.stack([fx * xyz_cur[:, 0] / zc + cx,
                           fy * xyz_cur[:, 1] / zc + cy], -1)
-    H0, W0 = cur_pyr[0].shape
+    H0, W0 = cur_pyr[0].shape[-2:]
     margin = patch_size
     in_frame = ((uv_cur[:, 0] > margin) & (uv_cur[:, 0] < W0 - margin)
                 & (uv_cur[:, 1] > margin) & (uv_cur[:, 1] < H0 - margin))
@@ -207,26 +243,27 @@ def update_point_seeds(seeds: PointSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
     cur_atlas, cxo, cso = pack_pyramid_atlas(cur_pyr)
     patches_b, warp_ok = matcher_ops.warp_patches_affine_atlas(
         kf_flat, seeds.kf_idx, seeds.uv, seeds.level, A_inv, slevel,
-        patch_size=patch_size)
+        patch_size=patch_size, seq=seq)
     ref_patch, ref_dx, ref_dy = ref_patch_gradients(patches_b, patch_size)
     search_valid = (visible & warp_ok & A_ok & ~too_long
                     & (xyz_far[:, 2] > 1e-3) & (xyz_near[:, 2] > 1e-3))
 
     skipped = torch.zeros(S, dtype=torch.bool, device=dev)
     if max_search:
-        k_search = min(max_search, S)
+        k_search = min(max_search, S0)
         band = torch.where(search_valid, band0 / lvl_scale,
                            torch.full_like(band0, -1.0))
         is_short = search_valid & (band <= 2.0)
         fail_w = 1.0 + (seeds.b - 10.0).clamp_min(0.0)
         long_key = torch.where(is_short, torch.full_like(band, -1.0),
                                band / fail_w)
-        _, idx_long = top_k_stable(long_key, k_search)
+        _, idx_long = _top_rows(long_key.reshape(B, S0), k_search)
         sub_valid = search_valid[idx_long] & ~is_short[idx_long]
         epi_sub = matcher_ops.epipolar_search_sliding_atlas(
             cur_atlas, cxo, cso, patches_b[idx_long], xyz_far[idx_long],
             xyz_near[idx_long], slevel[idx_long], sub_valid,
-            fx, fy, cx, cy, patch_size=patch_size, n_steps=n_epi_steps)
+            fx, fy, cx, cy, patch_size=patch_size, n_steps=n_epi_steps,
+            seq=seq[idx_long])
         uv_level0 = uv_cur / lvl_scale[:, None]
         epi_uv = scatter_drop(uv_level0, idx_long, torch.where(
             epi_sub.ok[:, None], epi_sub.uv_level, uv_level0[idx_long]))
@@ -239,7 +276,7 @@ def update_point_seeds(seeds: PointSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
         epi = matcher_ops.epipolar_search_sliding_atlas(
             cur_atlas, cxo, cso, patches_b, xyz_far, xyz_near, slevel,
             search_valid, fx, fy, cx, cy, patch_size=patch_size,
-            n_steps=n_epi_steps)
+            n_steps=n_epi_steps, seq=seq)
         epi_uv_level, epi_okm = epi.uv_level, epi.ok
 
     # 1-D patches refine along the epipolar direction; edges parallel to it
@@ -264,7 +301,7 @@ def update_point_seeds(seeds: PointSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
 
     res = align_mixed_atlas(cur_atlas, cxo, cso, ref_patch, ref_dx, ref_dy,
                             epi_uv_level, d_epi, is_1d, slevel, ok_ref,
-                            patch_size=patch_size, n_iter=10)
+                            patch_size=patch_size, n_iter=10, seq=seq)
     uv0 = res.uv * lvl_scale[:, None]
     matched = ok_ref & res.converged
     x_n = (uv0[:, 0] - cx) / fx
@@ -277,7 +314,6 @@ def update_point_seeds(seeds: PointSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
     # in f32 arithmetic, as the JAX package computes it from f32 intrinsics
     px_error_angle = float(torch.atan(
         1.0 / (2.0 * torch.tensor(fx, dtype=f32))) * 2.0)
-    R_rc = R_cr.transpose(-1, -2)
     t_rc = -torch.einsum("sji,sj->si", R_cr, t_cr)
     tau = compute_tau(t_rc, seeds.f, d_ref, px_error_angle)
     tau_inv = 0.5 * (1.0 / (d_ref - tau).clamp_min(1e-7)
@@ -297,21 +333,27 @@ def update_point_seeds(seeds: PointSeeds, kf_R_w, kf_t_w, kf_flat, cur_pyr,
                          < seeds.z_range / sigma_conv_factor)
     dead = ~torch.isfinite(mu) | ~torch.isfinite(sigma2) | (mu < 0)
     alive_out = alive & ~dead & ~converged
-    return SeedUpdateResult(
+    out = SeedUpdateResult(
         seeds=seeds._replace(mu=mu, sigma2=sigma2, a=a_new, b=b_new,
                              alive=alive_out),
         converged=converged, matched=matched,
         depth_converged=1.0 / mu.clamp_min(1e-10), skipped=skipped)
+    return SeedUpdateResult(_unflat(out.seeds, B, S0),
+                            *[a.reshape(B, S0) for a in out[1:]])
 
 
 def _seed_work_priority(seeds: PointSeeds, kf_R_w, kf_t_w, img_shape,
                         max_level, R_w_cur, t_w_cur, fx, fy, cx, cy,
                         batch_counter, *, patch_size, n_epi_steps,
                         max_seed_kfs):
-    """Cheap work priority per seed (<= 0: no useful work this frame):
-    short-band seeds above long-band ones, rotated by failures."""
-    alive = seeds.alive & ((batch_counter - seeds.batch_id) <= max_seed_kfs)
-    R_cr, t_cr = _rel_pose(seeds, kf_R_w, kf_t_w, R_w_cur, t_w_cur)
+    """Cheap work priority per seed, (B, S) (<= 0: no useful work this
+    frame): short-band seeds above long-band ones, rotated by failures."""
+    B, S0 = seeds.mu.shape
+    seq = seq_of_rows(B, S0, seeds.mu.device)
+    seeds = _flat(seeds, B, S0)
+    alive = seeds.alive & ((_per_row(batch_counter, seq) - seeds.batch_id)
+                           <= max_seed_kfs)
+    R_cr, t_cr = _rel_pose(seeds, seq, kf_R_w, kf_t_w, R_w_cur, t_w_cur)
     depth = 1.0 / seeds.mu.clamp_min(1e-10)
     xyz_cur = _mv(R_cr, seeds.f * depth[:, None]) + t_cr
     z_ok = xyz_cur[:, 2] > 0.1
@@ -339,12 +381,12 @@ def _seed_work_priority(seeds: PointSeeds, kf_R_w, kf_t_w, img_shape,
     band = band0 / (1 << lvl.long()).float()
     fail_w = 1.0 + (seeds.b - 10.0).clamp_min(0.0)
     prio = torch.where(band <= 2.0, 1e3 + 1e3 / fail_w, band / fail_w)
-    return torch.where(visible, prio, torch.full_like(prio, -1.0))
+    return torch.where(visible, prio, torch.full_like(prio, -1.0)).reshape(B, S0)
 
 
 def _slice_result(res: SeedUpdateResult, lo: int, hi: int) -> SeedUpdateResult:
-    return SeedUpdateResult(PointSeeds(*[a[lo:hi] for a in res.seeds]),
-                            *[a[lo:hi] for a in res[1:]])
+    return SeedUpdateResult(PointSeeds(*[a[:, lo:hi] for a in res.seeds]),
+                            *[a[:, lo:hi] for a in res[1:]])
 
 
 def update_seeds_combined(pt_seeds, ln_seeds, kf_R_w, kf_t_w, kf_flat,
@@ -358,22 +400,40 @@ def update_seeds_combined(pt_seeds, ln_seeds, kf_R_w, kf_t_w, kf_flat,
     batch (one K2 launch). With pt_work > 0 only the pt_work
     highest-priority point seeds run the chain; the rest are carried
     (aging still applies). Returns (SeedUpdateResult | None,
-    LineSeedUpdateResult | None) in the row spaces of the inputs."""
+    LineSeedUpdateResult | None) in the row spaces of the inputs.
+
+    With a leading batch axis of B sequences on the tables, keyframe poses,
+    images and current poses (batch_counter a (B,) tensor), every
+    sequence's seeds go through the same batch, each with its own poses,
+    images and budgets. Unbatched inputs run as a batch of one."""
+    if R_w_cur.dim() == 2:
+        one = lambda t: None if t is None else type(t)(*[a[None] for a in t])  # noqa: E731
+        pr, lr = update_seeds_combined(
+            one(pt_seeds), one(ln_seeds), kf_R_w[None], kf_t_w[None],
+            kf_flat._replace(flat=kf_flat.flat[None]),
+            [p[None] for p in cur_pyr], R_w_cur[None], t_w_cur[None], fx, fy,
+            cx, cy, batch_counter, has_pt=has_pt, has_ln=has_ln,
+            patch_size=patch_size, n_epi_steps=n_epi_steps,
+            max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor,
+            max_search=max_search, pt_work=pt_work)
+        squeeze = lambda r: None if r is None else type(r)(  # noqa: E731
+            type(r.seeds)(*[a[0] for a in r.seeds]), *[a[0] for a in r[1:]])
+        return squeeze(pr), squeeze(lr)
     kw = dict(patch_size=patch_size, n_epi_steps=n_epi_steps,
               max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor,
               max_search=max_search)
     parts = []
     pt_idx = None
     if has_pt:
-        Wp_full = pt_seeds.mu.shape[0]
+        B, Wp_full = pt_seeds.mu.shape
         if pt_work and pt_work < Wp_full:
             prio = _seed_work_priority(
-                pt_seeds, kf_R_w, kf_t_w, cur_pyr[0].shape, len(cur_pyr) - 1,
-                R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter,
-                patch_size=patch_size, n_epi_steps=n_epi_steps,
+                pt_seeds, kf_R_w, kf_t_w, cur_pyr[0].shape[-2:],
+                len(cur_pyr) - 1, R_w_cur, t_w_cur, fx, fy, cx, cy,
+                batch_counter, patch_size=patch_size, n_epi_steps=n_epi_steps,
                 max_seed_kfs=max_seed_kfs)
             p_sel, pt_idx = top_k_stable(prio, pt_work)
-            parts.append(PointSeeds(*[a[pt_idx] for a in pt_seeds]))
+            parts.append(PointSeeds(*[take(a, pt_idx) for a in pt_seeds]))
         else:
             parts.append(pt_seeds)
     if has_ln:
@@ -381,34 +441,42 @@ def update_seeds_combined(pt_seeds, ln_seeds, kf_R_w, kf_t_w, kf_flat,
         parts.append(_line_endpoint_view(ln_seeds, False))
     if not parts:
         return None, None
-    combined = PointSeeds(*[torch.cat(xs) for xs in zip(*parts)])
+    combined = PointSeeds(*[torch.cat(xs, 1) for xs in zip(*parts)])
     res = update_point_seeds(combined, kf_R_w, kf_t_w, kf_flat, cur_pyr,
                              R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter,
                              **kw)
     off = 0
     pt_res = None
     if has_pt:
-        off = parts[0].mu.shape[0]
+        off = parts[0].mu.shape[1]
         pt_res = _slice_result(res, 0, off)
         if pt_idx is not None:
             # worked rows scatter back into the full row space; the others
             # are carried with aging, not converged or matched this frame
-            aged = (batch_counter - pt_seeds.batch_id) > max_seed_kfs
+            bc = (batch_counter[:, None] if torch.is_tensor(batch_counter)
+                  else batch_counter)
+            aged = (bc - pt_seeds.batch_id) > max_seed_kfs
             base = pt_seeds._replace(alive=pt_seeds.alive & ~aged)
-            idx_w = torch.where(p_sel > 0.0, pt_idx,
-                                torch.full_like(pt_idx, Wp_full))
-            zb = torch.zeros(Wp_full, dtype=torch.bool, device=prio.device)
-            zf = torch.zeros(Wp_full, dtype=torch.float32, device=prio.device)
+            idx_w = flat_rows(pt_idx, Wp_full, p_sel > 0.0).reshape(-1)
+            zb = torch.zeros((B, Wp_full), dtype=torch.bool, device=prio.device)
+            zf = torch.zeros((B, Wp_full), dtype=torch.float32,
+                             device=prio.device)
+
+            def back(full, new):
+                flat = scatter_drop(full.reshape((B * Wp_full,) + full.shape[2:]),
+                                    idx_w, new.reshape((-1,) + new.shape[2:]))
+                return flat.reshape(full.shape)
+
             pt_res = SeedUpdateResult(
-                seeds=PointSeeds(*[scatter_drop(full, idx_w, new)
+                seeds=PointSeeds(*[back(full, new)
                                    for full, new in zip(base, pt_res.seeds)]),
-                converged=scatter_drop(zb, idx_w, pt_res.converged),
-                matched=scatter_drop(zb, idx_w, pt_res.matched),
-                depth_converged=scatter_drop(zf, idx_w, pt_res.depth_converged),
-                skipped=scatter_drop(zb, idx_w, pt_res.skipped))
+                converged=back(zb, pt_res.converged),
+                matched=back(zb, pt_res.matched),
+                depth_converged=back(zf, pt_res.depth_converged),
+                skipped=back(zb, pt_res.skipped))
     ln_res = None
     if has_ln:
-        Wl = ln_seeds.mu_s.shape[0]
+        Wl = ln_seeds.mu_s.shape[1]
         ln_res = _combine_line_endpoint_results(
             ln_seeds, _slice_result(res, off, off + Wl),
             _slice_result(res, off + Wl, off + 2 * Wl), batch_counter,
@@ -456,7 +524,8 @@ def _combine_line_endpoint_results(seeds: LineSeeds, rs: SeedUpdateResult,
     sig_e = torch.sqrt(s2_e.clamp_min(0.0))
     converged = (seeds.alive & (sig_s < seeds.z_range_s / sigma_conv_factor)
                  & (sig_e < seeds.z_range_e / sigma_conv_factor))
-    aged = (batch_counter - seeds.batch_id) > max_seed_kfs
+    bc = batch_counter[:, None] if torch.is_tensor(batch_counter) else batch_counter
+    aged = (bc - seeds.batch_id) > max_seed_kfs
     dead = (~torch.isfinite(mu_s) | ~torch.isfinite(mu_e) | (mu_s < 0)
             | (mu_e < 0) | aged)
     alive_out = seeds.alive & ~dead & ~converged

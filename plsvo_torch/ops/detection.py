@@ -90,16 +90,20 @@ def detect_fast_grid(
     fast_threshold: float = 10.0,
     score_threshold: float = 20.0,
     occupied: torch.Tensor | None = None,
+    scored=None,
 ) -> CornerGrid:
     """Best corner per level-0 grid cell across all pyramid levels (half-
-    cell tile winners per level, then a per-cell max over all tiles)."""
+    cell tile winners per level, then a per-cell max over all tiles).
+    `scored`: the levels' [(mask, score)] when the caller scored them
+    already (several pyramids in one K1 launch)."""
     from plsvo_torch.ops.fast_score import fast_score_levels
 
     H, W = pyramid[0].shape
     dev = pyramid[0].device
     nx, ny, n_cells = grid_cells(W, H, cell_size)
     cand_u, cand_v, cand_s, cand_l = [], [], [], []
-    scored = fast_score_levels(list(pyramid), fast_threshold)
+    if scored is None:
+        scored = fast_score_levels(list(pyramid), fast_threshold)
     for level, (corner, score) in enumerate(scored):
         h, w = corner.shape
         scale = float(1 << level)

@@ -72,7 +72,7 @@ def align2d(cur_img, ref_patch, ref_dx, ref_dy, uv_init, valid, *,
 
 def align2d_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
                   level, valid, *, patch_size: int = 8, n_iter: int = 10,
-                  conv_eps: float = 0.03) -> AlignOut:
+                  conv_eps: float = 0.03, seq=None) -> AlignOut:
     """align2d with per-feature pyramid levels through the atlas: one
     (P+1+2*4, rounded up to even: 18x18 at P=8) window per row is gathered
     before the loop, and every iteration resamples inside it. A row
@@ -80,7 +80,8 @@ def align2d_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
 
     The loop runs all n_iter iterations with per-row predication and no
     host sync. That gives the JAX while_loop's result, which stops once no
-    row is active: an inactive row never changes again."""
+    row is active: an inactive row never changes again. With `seq` (N,),
+    atlas is a batch (B, H, W_total) and row n reads atlas seq[n]."""
     from plsvo_torch.image import (gather_patch_windows_atlas,
                                    sample_patch_windows)
 
@@ -90,7 +91,7 @@ def align2d_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
     J = torch.stack([ref_dx, ref_dy, torch.ones_like(ref_dx)], -1)
     Hinv = inv3x3(_jtj(J), 1e-6)
     uv = uv_init.to(torch.float32)
-    win, corner = gather_patch_windows_atlas(atlas, x_off, uv, level, wp)
+    win, corner = gather_patch_windows_atlas(atlas, x_off, uv, level, wp, seq)
     wh = (sizes[level, 1].float(), sizes[level, 0].float())
     md = torch.zeros(N, dtype=torch.float32, device=uv.device)
     conv = torch.zeros(N, dtype=torch.bool, device=uv.device)
@@ -111,10 +112,14 @@ def align2d_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
 
 def align_mixed_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
                       direction, is_1d, level, valid, *, patch_size: int = 8,
-                      n_iter: int = 10, conv_eps: float = 0.03) -> AlignOut:
+                      n_iter: int = 10, conv_eps: float = 0.03,
+                      seq=None) -> AlignOut:
     """One GN loop refining 2-D rows (u, v, mean_diff) and 1-D rows
     (distance along `direction`, mean_diff) together, from per-row 16x16
-    windows of the pyramid atlas."""
+    windows of the pyramid atlas. Rows are independent, so the rows of B
+    sequences go through one loop (one K2 launch): with `seq` (N,), atlas
+    is a batch (B, H, W_total) and row n's window comes from atlas
+    seq[n]."""
     from plsvo_torch.image import gather_patch_windows_atlas
     from plsvo_torch.ops.mixed_align import mixed_align
 
@@ -126,7 +131,7 @@ def align_mixed_atlas(atlas, x_off, sizes, ref_patch, ref_dx, ref_dy, uv_init,
     dgrad = ref_dx * d[:, 0:1] + ref_dy * d[:, 1:2]
     H1inv = inv2x2(_jtj(torch.stack([dgrad, ones], -1)), 1e-6)
     uv0 = uv_init.to(torch.float32)
-    win, corner = gather_patch_windows_atlas(atlas, x_off, uv0, level, wp)
+    win, corner = gather_patch_windows_atlas(atlas, x_off, uv0, level, wp, seq)
     wh = torch.stack([sizes[level, 1].float(), sizes[level, 0].float()], -1)
     uv, conv, md = mixed_align(
         win, corner, ref_patch, ref_dx, ref_dy, dgrad, H3inv, H1inv, d, is_1d,

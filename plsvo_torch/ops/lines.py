@@ -237,8 +237,14 @@ def detect_segments_tiled(img: torch.Tensor, *, n_peaks: int = 64,
     rows first, then the tiles in row-major order). A single global
     accumulator surfaces only the dominant lines; per tile every segment is
     locally dominant. Default layout: ~150x170 px tiles, edge budgets ~5%
-    of the pixels globally and ~12% per tile."""
-    H, W = img.shape
+    of the pixels globally and ~12% per tile. img: (H, W) or a (R, H, W)
+    batch of same-shape images (one pass for all; the table gains the
+    leading axis)."""
+    if img.dim() == 2:
+        return SegmentTable(*[a[0] for a in detect_segments_tiled(
+            img[None], n_peaks=n_peaks, tiles=tiles, n_peaks_tile=n_peaks_tile,
+            max_edge_px=max_edge_px, max_edge_px_tile=max_edge_px_tile, **kw)])
+    R, H, W = img.shape
     if tiles is None:
         tiles = (max(2, round(H / 150)), max(2, round(W / 170)))
     if max_edge_px is None:
@@ -249,19 +255,20 @@ def detect_segments_tiled(img: torch.Tensor, *, n_peaks: int = 64,
     ty, tx = tiles
     th, tw = H // ty, W // tx
     g = detect_segments(img, n_peaks=n_peaks, max_edge_px=max_edge_px, **kw)
-    crops = (img[: ty * th, : tx * tw].reshape(ty, th, tx, tw)
-             .permute(0, 2, 1, 3).reshape(ty * tx, th, tw))
+    crops = (img[:, : ty * th, : tx * tw].reshape(R, ty, th, tx, tw)
+             .permute(0, 1, 3, 2, 4).reshape(R * ty * tx, th, tw))
     det_t = detect_segments(crops, n_peaks=n_peaks_tile,
                             max_edge_px=max_edge_px_tile, **kw)
-    k = torch.arange(ty * tx, device=img.device)
+    k = torch.arange(ty * tx, device=img.device).repeat(R)
     off = torch.stack([(k % tx).to(img.dtype) * tw,
                        (k // tx).to(img.dtype) * th], -1)[:, None, :]
     det_t = det_t._replace(sp=det_t.sp + off, ep=det_t.ep + off)
 
-    def flat(a):
-        return a.reshape((-1,) + a.shape[2:])
+    def per_image(a):
+        return a.reshape((R, -1) + a.shape[2:])
 
-    return SegmentTable(*[torch.cat([a, flat(b)]) for a, b in zip(g, det_t)])
+    return SegmentTable(*[torch.cat([a, per_image(b)], 1)
+                          for a, b in zip(g, det_t)])
 
 
 def dedup_segments_grid_np(segs, *, width, height, cell_size, max_segs,

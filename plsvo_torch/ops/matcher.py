@@ -2,7 +2,9 @@
 patches, epipolar ZMSSD search, two-view triangulation.
 
 Port of the atlas-based matcher of `plsvo_tpu/ops/matcher.py` (the path
-the pipeline runs). Everything is batched over the feature axis.
+the pipeline runs). Everything is batched over the feature axis; with a
+per-row sequence index `seq` the rows of B sequences run together, each
+reading its own sequence's images.
 """
 from __future__ import annotations
 
@@ -108,11 +110,13 @@ def _bordered_offsets(patch_size, device):
 
 def warp_patches_affine_atlas(kf_flat, kf_idx, uv_ref, level_ref, A_ref_cur,
                               search_level, patch_size: int = 8,
-                              window: int = 24):
+                              window: int = 24, seq=None):
     """Warped bordered (P+2)^2 reference patches through each feature's own
     keyframe atlas: one (window x window) gather per feature, taps
     interpolated inside it; the anchor level is bumped when the warp's tap
-    spacing would not fit. Returns (vals (N, (P+2)^2), ok (N,))."""
+    spacing would not fit. With `seq` (N,), kf_flat.flat is a batch
+    (B, H, K*Wa) and row n reads sequence seq[n]'s keyframes. Returns
+    (vals (N, (P+2)^2), ok (N,))."""
     dev = uv_ref.device
     offs = _bordered_offsets(patch_size, dev)
     max_level = kf_flat.sizes.shape[0] - 1
@@ -134,12 +138,12 @@ def warp_patches_affine_atlas(kf_flat, kf_idx, uv_ref, level_ref, A_ref_cur,
     u = pos[..., 0]
     v = pos[..., 1]
     in_level = (u >= 0) & (v >= 0) & (u <= w - 1) & (v <= h - 1)
-    H, Wt = kf_flat.flat.shape
+    H, Wt = kf_flat.flat.shape[-2:]
     wp = window
     xo = kf_flat.x_off[lvl_eff] + kf_idx.long() * kf_flat.width.long()
     cu = (torch.floor(center[:, 0]).long() - wp // 2 + 1 + xo).clamp(0, max(Wt - wp, 0))
     cv = (torch.floor(center[:, 1]).long() - wp // 2 + 1).clamp(0, max(H - wp, 0))
-    win = gather_windows_raw(kf_flat.flat, torch.stack([cu, cv], -1), wp)
+    win = gather_windows_raw(kf_flat.flat, torch.stack([cu, cv], -1), wp, seq)
     corner = torch.stack([cu.float() - xo.float(), cv.float()], -1)
     vals, ok = sample_in_window(win, corner, pos)
     vals = torch.where(in_level, vals, torch.zeros_like(vals))
@@ -163,17 +167,19 @@ def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
                             t_cur_ref, uv_cur_init, valid, fx, fy, cx, cy,
                             ftype=None, grad_dir=None, *, patch_size: int = 8,
                             n_iter: int = 10, max_level: int = 2,
-                            has_edgelets: bool = False) -> MatchResult:
+                            has_edgelets: bool = False,
+                            seq=None) -> MatchResult:
     """Batched direct match: affine-warp the anchor patch, pick the search
     level, refine in the current frame. With has_edgelets, corners 2-D and
     edgelets 1-D along the warped gradient direction in one mixed GN loop;
-    without, every row 2-D through align2d_atlas."""
+    without, every row 2-D through align2d_atlas. With `seq` (N,), the
+    atlases are batches over sequences and row n reads sequence seq[n]'s."""
     A, A_ok, A_inv, slevel = _warp_and_ref(
         kf_flat, kf_idx, uv_ref, f_ref, depth_ref, level_ref, R_cur_ref,
         t_cur_ref, fx, fy, cx, cy, max_level, patch_size)
     patches_b, warp_ok = warp_patches_affine_atlas(
         kf_flat, kf_idx, uv_ref, level_ref, A_inv, slevel,
-        patch_size=patch_size)
+        patch_size=patch_size, seq=seq)
     ref_patch, ref_dx, ref_dy = ref_patch_gradients(patches_b, patch_size)
     ok0 = valid & warp_ok & A_ok
     scale = 1.0 / (1 << slevel.long()).float()
@@ -183,13 +189,13 @@ def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
         res = align_mixed_atlas(
             cur_atlas, cur_x_off, cur_sizes, ref_patch, ref_dx, ref_dy,
             uv_cur_init * scale[:, None], d_cur, is_edge, slevel, ok0,
-            patch_size=patch_size, n_iter=n_iter)
+            patch_size=patch_size, n_iter=n_iter, seq=seq)
     else:
         # without edgelets every row refines 2-D in its own 18x18 window
         res = align2d_atlas(
             cur_atlas, cur_x_off, cur_sizes, ref_patch, ref_dx, ref_dy,
             uv_cur_init * scale[:, None], slevel, ok0,
-            patch_size=patch_size, n_iter=n_iter)
+            patch_size=patch_size, n_iter=n_iter, seq=seq)
     return MatchResult(uv=res.uv / scale[:, None], level=slevel,
                        ok=res.converged & ok0)
 
@@ -222,12 +228,13 @@ def epipolar_search_sliding_atlas(cur_atlas, x_off, sizes, ref_patch_border,
                                   f_A, f_B, search_level, valid, fx, fy, cx,
                                   cy, *, patch_size: int = 8,
                                   n_steps: int = 48,
-                                  threshold_factor: float = 2000.0
-                                  ) -> EpipolarResult:
+                                  threshold_factor: float = 2000.0,
+                                  seq=None) -> EpipolarResult:
     """Sliding-window epipolar ZMSSD: the band is sampled once as a
     (n_steps+P) x P window in epipolar-aligned coordinates; step s's patch
     is rows s..s+P-1 of it. The reference patch is resampled at the rotated
-    offsets from its bordered axis-aligned warp."""
+    offsets from its bordered axis-aligned warp. With `seq` (N,), cur_atlas
+    is a batch (B, H, W_total) and row n searches atlas seq[n]."""
     N = ref_patch_border.shape[0]
     P = patch_size
     PP = P * P
@@ -256,12 +263,13 @@ def epipolar_search_sliding_atlas(cur_atlas, x_off, sizes, ref_patch_border,
               & (pos[..., 0] <= w_lvl[:, None, None] - 1)
               & (pos[..., 1] <= h_lvl[:, None, None] - 1))
     wb = W_rows + P + 4
-    Hf, Wf = cur_atlas.shape
+    Hf, Wf = cur_atlas.shape[-2:]
     mid = 0.5 * (uvA + uvB)
     xo = x_off[sl]
     cu = (torch.floor(mid[:, 0]).long() - wb // 2 + xo).clamp(0, max(Wf - wb, 0))
     cv = (torch.floor(mid[:, 1]).long() - wb // 2).clamp(0, max(Hf - wb, 0))
-    band_win = gather_windows_raw(cur_atlas, torch.stack([cu, cv], -1), wb)
+    band_win = gather_windows_raw(cur_atlas, torch.stack([cu, cv], -1), wb,
+                                  seq)
     band_corner = torch.stack([(cu - xo).float(), cv.float()], -1)
     vals, ok_w = sample_in_window(band_win, band_corner,
                                   pos.reshape(N, W_rows * P, 2))

@@ -3,8 +3,10 @@
 Port of `plsvo_tpu/ops/pose_opt.py`, with its two deliberate fixes of the
 reference kept: the exact line Jacobian rows [l^T J_s; l^T J_e] (the
 reference scales both by ds/||e||), and the sign of the line term (the
-reference omits the flip). The GN loop keeps the JAX package's early exit:
-one host sync per iteration on a GPU.
+reference omits the flip). A leading batch axis optimizes the poses of B
+sequences at once. The GN loop keeps the JAX package's early exit: a
+stopped sequence's carry is frozen, and the loop reads on the host whether
+any sequence still runs, one sync per iteration on a GPU.
 """
 from __future__ import annotations
 
@@ -34,22 +36,28 @@ def tukey_rho(x_norm: torch.Tensor) -> torch.Tensor:
 
 
 def _nanmedian(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """`jnp.nanmedian` of x[valid]: linear interpolation between the two
-    middle order statistics with the same weights (NaN when empty), without
-    a host sync."""
-    n = valid.sum()
-    s, _ = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf"))))
+    """`jnp.nanmedian` of x[valid] along the last axis: linear interpolation
+    between the two middle order statistics with the same weights (NaN
+    when empty), without a host sync."""
+    n = valid.sum(-1)
+    N = x.shape[-1]
+    s, _ = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf"))),
+                      dim=-1)
     q = 0.5 * (n.to(x.dtype) - 1.0)
     lo_f = torch.floor(q)
     hi_f = torch.ceil(q)
     hw = q - lo_f
     lw = 1.0 - hw
-    med = gather_clamped(s, lo_f) * lw + gather_clamped(s, hi_f) * hw
+
+    def at(i):
+        return s.gather(-1, i.long().clamp(0, N - 1)[..., None])[..., 0]
+
+    med = at(lo_f) * lw + at(hi_f) * hw
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
 def mad_scale(errors: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """1.48 * median(|e|) over valid entries."""
+    """1.48 * median(|e|) over valid entries (along the last axis)."""
     med = _nanmedian(errors, valid)
     med = torch.where(torch.isnan(med), torch.ones_like(med), med)
     return (1.48 * med).clamp_min(1e-6)
@@ -85,18 +93,18 @@ def _safe_z(z):
 
 
 def _pt_errors(R, t, inp: PoseOptInputs):
-    xyz_f = inp.pt_pos_w @ R.T + t
-    proj = xyz_f[:, :2] / _safe_z(xyz_f[:, 2])[:, None]
-    obs = inp.pt_f[:, :2] / _safe_z(inp.pt_f[:, 2:3])
+    xyz_f = inp.pt_pos_w @ R.transpose(-1, -2) + t[..., None, :]
+    proj = xyz_f[..., :2] / _safe_z(xyz_f[..., 2])[..., None]
+    obs = inp.pt_f[..., :2] / _safe_z(inp.pt_f[..., 2:3])
     sic = 1.0 / (1 << inp.pt_level.long()).float()
-    return xyz_f, (obs - proj) * sic[:, None], sic
+    return xyz_f, (obs - proj) * sic[..., None], sic
 
 
 def _seg_errors(R, t, inp: PoseOptInputs):
     def endpoint(pos_w):
-        xyz = pos_w @ R.T + t
-        z = _safe_z(xyz[:, 2])
-        return xyz, torch.stack([xyz[:, 0] / z, xyz[:, 1] / z,
+        xyz = pos_w @ R.transpose(-1, -2) + t[..., None, :]
+        z = _safe_z(xyz[..., 2])
+        return xyz, torch.stack([xyz[..., 0] / z, xyz[..., 1] / z,
                                  torch.ones_like(z)], -1)
 
     xyz_s, s_proj = endpoint(inp.seg_spos_w)
@@ -104,75 +112,94 @@ def _seg_errors(R, t, inp: PoseOptInputs):
     ds = (inp.seg_line * s_proj).sum(-1)
     de = (inp.seg_line * e_proj).sum(-1)
     sic = 1.0 / (1 << inp.seg_level.long()).float()
-    return xyz_s, xyz_e, torch.stack([ds, de], -1) * sic[:, None], sic
+    return xyz_s, xyz_e, torch.stack([ds, de], -1) * sic[..., None], sic
 
 
 def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
                   n_iter: int = 10, n_iter_ref: int = 0,
                   reproj_thresh: float = 2.0) -> PoseOptResult:
+    """Tukey-weighted GN on the pose, then the inlier strip (and n_iter_ref
+    refinement iterations on the inliers).
+
+    A leading batch axis on every input (tables (B, N, ...), R_init
+    (B, 3, 3)) optimizes B poses at once, each from its own rows, with its
+    own MAD scales; a sequence whose loop has stopped keeps its carry
+    frozen, as under vmap. Unbatched inputs run as a batch of one."""
+    if R_init.dim() == 2:
+        res = optimize_pose(PoseOptInputs(*[a[None] for a in inp]),
+                            R_init[None], t_init[None], focal, n_iter=n_iter,
+                            n_iter_ref=n_iter_ref, reproj_thresh=reproj_thresh)
+        return PoseOptResult(*[a[0] for a in res])
     f32 = torch.float32
     dev = inp.pt_f.device
+    B = R_init.shape[0]
     R0, t0 = R_init.to(f32), t_init.to(f32)
     _, e_pt0, _ = _pt_errors(R0, t0, inp)
     scale_pt0 = mad_scale(torch.linalg.norm(e_pt0, dim=-1), inp.pt_valid)
     _, _, e_sg0, _ = _seg_errors(R0, t0, inp)
     scale_sg0 = torch.where(
-        inp.seg_valid.any(),
+        inp.seg_valid.any(-1),
         mad_scale(torch.linalg.norm(e_sg0, dim=-1), inp.seg_valid),
         torch.ones((), device=dev))
-    scale_pt, scale_sg = scale_pt0, scale_sg0
+    scale_pt, scale_sg = scale_pt0[:, None], scale_sg0[:, None]
 
     def system(R, t, pt_valid, seg_valid):
         xyz_pt, e_pt, sic_pt = _pt_errors(R, t, inp)
         en_pt = torch.linalg.norm(e_pt, dim=-1)
-        J_pt = jacobian_xyz2uv(xyz_pt) * sic_pt[:, None, None]
+        J_pt = jacobian_xyz2uv(xyz_pt) * sic_pt[..., None, None]
         w_pt = tukey_weight(en_pt / scale_pt) * pt_valid
         xyz_s, xyz_e, e_sg, sic_sg = _seg_errors(R, t, inp)
-        l_aux = inp.seg_line[:, :2]
-        Js = jacobian_xyz2uv(xyz_s) * sic_sg[:, None, None]
-        Je = jacobian_xyz2uv(xyz_e) * sic_sg[:, None, None]
-        row_s = -torch.einsum("mi,mik->mk", l_aux, Js)
-        row_e = -torch.einsum("mi,mik->mk", l_aux, Je)
-        J_sg = torch.stack([row_s, row_e], 1)
+        l_aux = inp.seg_line[..., :2]
+        Js = jacobian_xyz2uv(xyz_s) * sic_sg[..., None, None]
+        Je = jacobian_xyz2uv(xyz_e) * sic_sg[..., None, None]
+        row_s = -torch.einsum("bmi,bmik->bmk", l_aux, Js)
+        row_e = -torch.einsum("bmi,bmik->bmk", l_aux, Je)
+        J_sg = torch.stack([row_s, row_e], 2)
         en_sg = torch.linalg.norm(e_sg, dim=-1)
         w_sg = tukey_weight(en_sg / scale_sg) * seg_valid
-        A = (torch.einsum("nik,nil,n->kl", J_pt, J_pt, w_pt)
-             + torch.einsum("mik,mil,m->kl", J_sg, J_sg, w_sg))
-        b = -(torch.einsum("nik,ni,n->k", J_pt, e_pt, w_pt)
-              + torch.einsum("mik,mi,m->k", J_sg, e_sg, w_sg))
+        A = (torch.einsum("bnik,bnil,bn->bkl", J_pt, J_pt, w_pt)
+             + torch.einsum("bmik,bmil,bm->bkl", J_sg, J_sg, w_sg))
+        b = -(torch.einsum("bnik,bni,bn->bk", J_pt, e_pt, w_pt)
+              + torch.einsum("bmik,bmi,bm->bk", J_sg, e_sg, w_sg))
         zero = torch.zeros((), device=dev)
-        chi2 = (torch.where(pt_valid, tukey_rho(en_pt / scale_pt), zero).sum()
-                + torch.where(seg_valid, tukey_rho(en_sg / scale_sg), zero).sum())
+        chi2 = (torch.where(pt_valid, tukey_rho(en_pt / scale_pt), zero).sum(-1)
+                + torch.where(seg_valid, tukey_rho(en_sg / scale_sg),
+                              zero).sum(-1))
         return A, b, chi2
 
     def run_gn(R, t, pt_valid, seg_valid, iters):
         R_old, t_old = R, t
-        chi2_prev = torch.full((), float("inf"), device=dev)
-        A_last = torch.eye(6, dtype=f32, device=dev)
+        chi2_prev = torch.full((B,), float("inf"), device=dev)
+        A_last = torch.eye(6, dtype=f32, device=dev).expand(B, 6, 6)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
         for it in range(iters):
             A, b, chi2 = system(R, t, pt_valid, seg_valid)
             dT = solve_psd(A, b, 1e-10)
-            bad = torch.isnan(dT).any()
+            bad = torch.isnan(dT).any(-1)
             worse = (chi2 > chi2_prev) if it > 0 else torch.zeros_like(bad)
-            stop = worse | bad | (dT.abs().amax() < 1e-10)
+            stop = worse | bad | (dT.abs().amax(-1) < 1e-10)
             dR, dt = lie.se3_exp(dT)
             R_new, t_new = lie.compose(dR, dt, R, t)
-            wb = worse | bad
-            R_o = torch.where(wb, R_old, R)
-            t_o = torch.where(wb, t_old, t)
-            R_next = torch.where(wb, R_o, R_new)
-            t_next = torch.where(wb, t_o, t_new)
-            chi2_prev = torch.where(worse, chi2_prev, chi2)
-            A_last = torch.where(worse, A_last, A)
-            R_old, t_old = R, t
-            R, t = R_next, t_next
-            if bool(stop):  # host sync: early exit as in the JAX loop
+            wb3, wb1 = (worse | bad)[:, None, None], (worse | bad)[:, None]
+            R_next = torch.where(wb3, R_old, R_new)
+            t_next = torch.where(wb1, t_old, t_new)
+            A_next = torch.where(worse[:, None, None], A_last, A)
+            # a stopped sequence's carry stays frozen
+            d3, d1 = done[:, None, None], done[:, None]
+            R_old = torch.where(d3, R_old, R)
+            t_old = torch.where(d1, t_old, t)
+            R = torch.where(d3, R, R_next)
+            t = torch.where(d1, t, t_next)
+            chi2_prev = torch.where(done | worse, chi2_prev, chi2)
+            A_last = torch.where(d3, A_last, A_next)
+            done = done | stop
+            if not bool((~done).any()):  # host sync: every sequence stopped
                 break
         return R, t, chi2_prev, A_last
 
     R, t, chi2, A_fin = run_gn(R0, t0, inp.pt_valid, inp.seg_valid, n_iter)
     thresh_pt = reproj_thresh / focal
-    thresh_sg = thresh_pt * scale_sg0 / scale_pt0
+    thresh_sg = (thresh_pt * scale_sg0 / scale_pt0)[:, None]
 
     def strip(R, t):
         _, e_pt, _ = _pt_errors(R, t, inp)
@@ -189,8 +216,8 @@ def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
                            + 1e-12 * torch.eye(6, dtype=f32, device=dev))
     return PoseOptResult(
         R=R, t=t, cov=cov, pt_inlier=pt_in, seg_inlier=seg_in,
-        n_obs_pt=inp.pt_valid.sum().to(torch.int32),
-        n_obs_seg=inp.seg_valid.sum().to(torch.int32),
+        n_obs_pt=inp.pt_valid.sum(-1).to(torch.int32),
+        n_obs_seg=inp.seg_valid.sum(-1).to(torch.int32),
         scale_pt=scale_pt0, scale_seg=scale_sg0, chi2=chi2)
 
 

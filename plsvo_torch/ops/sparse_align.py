@@ -1,9 +1,11 @@
 """Sparse image alignment: batched inverse-compositional Gauss-Newton on
 SE(3) over point patches and line-segment samples.
 
-Port of `plsvo_tpu/ops/sparse_align.py`. The GN loop keeps the JAX
-package's early exit (chi2-increase rollback, small-update stop): each
-iteration reads its stop flag on the host, one sync per iteration on a GPU.
+Port of `plsvo_tpu/ops/sparse_align.py`, with a leading batch axis in
+place of the JAX package's `vmap` (`parallel/batched.py`). The GN loop
+keeps the early exit (chi2-increase rollback, small-update stop): a
+stopped sequence's carry is frozen, and the loop reads on the host whether
+any sequence is still running, one sync per iteration on a GPU.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from plsvo_torch import lie
 from plsvo_torch.batlin import solve_psd
 from plsvo_torch.image import gather_patch_windows, sample_patch_windows
+from plsvo_torch.indexing import seq_of_rows
 
 
 class AlignPoints(NamedTuple):
@@ -52,14 +55,15 @@ def jacobian_xyz2uv(xyz: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1], -2)
 
 
-def _patch_and_grad(img, centers, patch_size: int):
+def _patch_and_grad(img, centers, patch_size: int, seq=None):
     """Bilinear patch + central-difference gradient of the interpolated
-    image at every patch tap, from one window per feature."""
-    H, W = img.shape
+    image at every patch tap, from one window per feature (row n of a
+    batch (B, H, W) reads image seq[n])."""
+    H, W = img.shape[-2:]
     P = patch_size
     wp = P + 6
     wp += wp % 2
-    win, corner = gather_patch_windows(img, centers, wp)
+    win, corner = gather_patch_windows(img, centers, wp, seq)
     z1 = torch.zeros_like(win[:, :, :1])
     dxw = torch.cat([z1, 0.5 * (win[:, :, 2:] - win[:, :, :-2]), z1], 2)
     z2 = torch.zeros_like(win[:, :1, :])
@@ -76,7 +80,8 @@ def _patch_and_grad(img, centers, patch_size: int):
 
 
 def _warp_project(R, t, xyz, fx, fy, cx, cy, scale):
-    xyz_cur = xyz @ R.T + t
+    """Rows xyz (B, n, 3) through each sequence's pose (B, 3, 3), (B, 3)."""
+    xyz_cur = xyz @ R.transpose(-1, -2) + t[:, None, :]
     z = xyz_cur[..., 2]
     zs = torch.where(z.abs() < 1e-10, torch.full_like(z, 1e-10), z)
     u = (fx * xyz_cur[..., 0] / zs + cx) * scale
@@ -84,22 +89,43 @@ def _warp_project(R, t, xyz, fx, fy, cx, cy, scale):
     return xyz_cur, torch.stack([u, v], -1)
 
 
+def _batched(x):
+    return None if x is None else x[None]
+
+
 def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
                      pyr_cur: Sequence[torch.Tensor], pts: AlignPoints,
                      segs: AlignSegments, R_init, t_init, fx, fy, cx, cy, *,
                      levels: Tuple[int, ...] = (4, 3, 2), n_iter: int = 30,
                      patch_size: int = 4) -> AlignResult:
-    """Refine T_cur_from_ref over the pyramid levels (coarse to fine)."""
+    """Refine T_cur_from_ref over the pyramid levels (coarse to fine).
+
+    A leading batch axis on every input (levels (B, h, w), tables
+    (B, N, ...), R_init (B, 3, 3)) aligns B sequences in one pass: each
+    sequence sums its own rows into its own 6x6 system. A sequence whose
+    loop has stopped keeps its carry frozen while the others iterate, as a
+    vmapped `lax.while_loop` does, so each sequence gets exactly the result
+    it gets alone. Unbatched inputs run as a batch of one."""
+    if R_init.dim() == 2:
+        res = sparse_img_align(
+            [p[None] for p in pyr_ref], [p[None] for p in pyr_cur],
+            AlignPoints(*map(_batched, pts)),
+            AlignSegments(*map(_batched, segs)), R_init[None], t_init[None],
+            fx, fy, cx, cy, levels=levels, n_iter=n_iter,
+            patch_size=patch_size)
+        return AlignResult(*[a[0] for a in res])
     P = patch_size * patch_size
     f32 = torch.float32
     dev = pts.xyz_ref.device
-    M, K = segs.xyz_ref.shape[0], segs.xyz_ref.shape[1]
-    N = pts.xyz_ref.shape[0]
+    B, N = pts.xyz_ref.shape[:2]
+    M, K = segs.xyz_ref.shape[1], segs.xyz_ref.shape[2]
+    NA = N + M * K
+    seq_all = seq_of_rows(B, NA, dev)
     R, t = R_init.to(f32), t_init.to(f32)
     seg_alive = segs.valid
-    n_pts_vis = torch.zeros((), dtype=torch.int32, device=dev)
-    n_seg_vis = torch.zeros((), dtype=torch.int32, device=dev)
-    chi2_out = torch.zeros((), dtype=f32, device=dev)
+    n_pts_vis = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_seg_vis = torch.zeros(B, dtype=torch.int32, device=dev)
+    chi2_out = torch.zeros(B, dtype=f32, device=dev)
     Jpt_frame = jacobian_xyz2uv(pts.xyz_ref)
     adaptive = segs.p_ref is not None
 
@@ -120,99 +146,113 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
             n_act = ((length / patch_size).to(torch.int32) + 1).clamp(2, K)
             jidx = torch.arange(K, dtype=f32, device=dev)
             denom = (n_act - 1).clamp_min(1).to(f32)
-            alpha = torch.minimum(jidx[None, :] / denom[:, None],
+            alpha = torch.minimum(jidx / denom[..., None],
                                   torch.ones((), device=dev))
-            dpq = (segs.q_ref - segs.p_ref)[:, None, :]
-            xyz_sg = segs.p_ref[:, None, :] + alpha[..., None] * dpq
+            dpq = (segs.q_ref - segs.p_ref)[..., None, :]
+            xyz_sg = segs.p_ref[..., None, :] + alpha[..., None] * dpq
             uv_sg = _proj0(xyz_sg)
-            smask = jidx[None, :] < n_act.to(f32)[:, None]
+            smask = jidx < n_act.to(f32)[..., None]
         else:
             xyz_sg = segs.xyz_ref
             uv_sg = segs.uv_ref
-            smask = torch.ones((M, K), dtype=torch.bool, device=dev)
-            n_act = torch.full((M,), K, dtype=torch.int32, device=dev)
+            smask = torch.ones((B, M, K), dtype=torch.bool, device=dev)
+            n_act = torch.full((B, M), K, dtype=torch.int32, device=dev)
         Jseg_frame = jacobian_xyz2uv(xyz_sg)
-        xyz_all = torch.cat([pts.xyz_ref, xyz_sg.reshape(M * K, 3)])
-        uv_all_ref = torch.cat([pts.uv_ref, uv_sg.reshape(M * K, 2)])
-        I_ref_all, dx_all, dy_all, vis_all = _patch_and_grad(
-            ref_img, uv_all_ref * scale, patch_size)
-        I_ref_pt, dx_pt, dy_pt = I_ref_all[:N], dx_all[:N], dy_all[:N]
-        vis_pt = vis_all[:N] & pts.valid
-        Jpt = (dx_pt[..., None] * Jpt_frame[:, None, 0, :]
-               + dy_pt[..., None] * Jpt_frame[:, None, 1, :]) * focal_scale
-        I_ref_sg = I_ref_all[N:].reshape(M, K, P)
-        dx_sg = dx_all[N:].reshape(M, K, P)
-        dy_sg = dy_all[N:].reshape(M, K, P)
-        vis_sg = (vis_all[N:].reshape(M, K) | ~smask).all(-1) & seg_alive
-        Jsg = ((dx_sg[..., None] * Jseg_frame[:, :, None, 0, :]
-                + dy_sg[..., None] * Jseg_frame[:, :, None, 1, :])
+        xyz_all = torch.cat([pts.xyz_ref, xyz_sg.reshape(B, M * K, 3)], 1)
+        uv_all_ref = torch.cat([pts.uv_ref, uv_sg.reshape(B, M * K, 2)], 1)
+        I_ref_all, dx_all, dy_all, vis_all = (
+            a.reshape((B, NA) + a.shape[1:]) for a in _patch_and_grad(
+                ref_img, (uv_all_ref * scale).reshape(B * NA, 2), patch_size,
+                seq_all))
+        I_ref_pt, dx_pt, dy_pt = I_ref_all[:, :N], dx_all[:, :N], dy_all[:, :N]
+        vis_pt = vis_all[:, :N] & pts.valid
+        Jpt = (dx_pt[..., None] * Jpt_frame[:, :, None, 0, :]
+               + dy_pt[..., None] * Jpt_frame[:, :, None, 1, :]) * focal_scale
+        I_ref_sg = I_ref_all[:, N:].reshape(B, M, K, P)
+        dx_sg = dx_all[:, N:].reshape(B, M, K, P)
+        dy_sg = dy_all[:, N:].reshape(B, M, K, P)
+        vis_sg = (vis_all[:, N:].reshape(B, M, K) | ~smask).all(-1) & seg_alive
+        Jsg = ((dx_sg[..., None] * Jseg_frame[..., None, 0, :]
+                + dy_sg[..., None] * Jseg_frame[..., None, 1, :])
                * focal_scale * smask[..., None, None])
 
         wp_win = patch_size + 1 + 2 * 3
         wp_win += wp_win % 2
         _, uv0_all = _warp_project(R, t, xyz_all, fx, fy, cx, cy, scale)
-        win_all, corner_all = gather_patch_windows(cur_img, uv0_all, wp_win)
-        n_all = uv0_all.shape[0]
-        wh_lvl = (torch.full((n_all,), float(cur_img.shape[1]), device=dev),
-                  torch.full((n_all,), float(cur_img.shape[0]), device=dev))
-        Jf_pt = Jpt.reshape(N * P, 6)
-        Jf_sg = Jsg.reshape(M, K * P, 6)
+        win_all, corner_all = gather_patch_windows(
+            cur_img, uv0_all.reshape(B * NA, 2), wp_win, seq_all)
+        wh_lvl = (torch.full((B * NA,), float(cur_img.shape[-1]), device=dev),
+                  torch.full((B * NA,), float(cur_img.shape[-2]), device=dev))
+        Jf_pt = Jpt.reshape(B, N * P, 6)
+        Jf_sg = Jsg.reshape(B, M, K * P, 6)
 
         R_prev, t_prev = R, t
-        chi2_prev = torch.full((), float("inf"), device=dev)
+        chi2_prev = torch.full((B,), float("inf"), device=dev)
         alive = seg_alive
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
         for it in range(n_iter):
             _, uv_cur_all = _warp_project(R, t, xyz_all, fx, fy, cx, cy, scale)
             I_cur_all, in_all = sample_patch_windows(
-                win_all, corner_all, uv_cur_all, patch_size, wh=wh_lvl)
-            ok_pt = (vis_pt & in_all[:N])[:, None]
-            r_pt = I_cur_all[:N] - I_ref_pt
+                win_all, corner_all, uv_cur_all.reshape(B * NA, 2),
+                patch_size, wh=wh_lvl)
+            I_cur_all = I_cur_all.reshape(B, NA, P)
+            in_all = in_all.reshape(B, NA)
+            ok_pt = (vis_pt & in_all[:, :N])[..., None]
+            r_pt = I_cur_all[:, :N] - I_ref_pt
             w_pt = 1.0 / (1.0 + r_pt.abs())
             wm_pt = torch.where(ok_pt, w_pt, torch.zeros_like(w_pt))
-            wr_pt = (wm_pt * r_pt).reshape(N * P)
-            H_pt = Jf_pt.T @ (Jf_pt * wm_pt.reshape(N * P, 1))
-            b_pt = -(Jf_pt.T @ wr_pt)
-            chi2_pt = (wm_pt * r_pt * r_pt).sum()
+            wr_pt = (wm_pt * r_pt).reshape(B, N * P, 1)
+            JfT = Jf_pt.transpose(-1, -2)
+            H_pt = JfT @ (Jf_pt * wm_pt.reshape(B, N * P, 1))
+            b_pt = -(JfT @ wr_pt)[..., 0]
+            chi2_pt = (wm_pt * r_pt * r_pt).sum((1, 2))
 
-            I_cur_sg = I_cur_all[N:].reshape(M, K, P)
-            in_sg = in_all[N:].reshape(M, K)
+            I_cur_sg = I_cur_all[:, N:].reshape(B, M, K, P)
+            in_sg = in_all[:, N:].reshape(B, M, K)
             ok_line = vis_sg & (in_sg | ~smask).all(-1) & alive
             r_sg = I_cur_sg - I_ref_sg
-            mean_abs = ((r_sg.abs() * smask[..., None]).sum((1, 2))
+            mean_abs = ((r_sg.abs() * smask[..., None]).sum((2, 3))
                         / (n_act.to(f32) * P).clamp_min(1.0))
             alive_new = alive & torch.where(ok_line, mean_abs < 200.0,
                                             torch.ones_like(ok_line))
             use_line = ok_line & (mean_abs < 200.0)
             w_line = torch.where(use_line, 1.0 / (1.0 + mean_abs),
                                  torch.zeros_like(mean_abs))
-            r_sgf = r_sg.reshape(M, K * P)
-            H_sg = torch.einsum("mpi,mpj,m->ij", Jf_sg, Jf_sg, w_line)
-            b_sg = -torch.einsum("mpi,mp,m->i", Jf_sg, r_sgf, w_line)
-            chi2_sg = (w_line * mean_abs * mean_abs).sum()
+            r_sgf = r_sg.reshape(B, M, K * P)
+            H_sg = torch.einsum("bmpi,bmpj,bm->bij", Jf_sg, Jf_sg, w_line)
+            b_sg = -torch.einsum("bmpi,bmp,bm->bi", Jf_sg, r_sgf, w_line)
+            chi2_sg = (w_line * mean_abs * mean_abs).sum(-1)
 
             H = H_pt + H_sg
             b = b_pt + b_sg
-            n_meas = (ok_pt.sum() * P
-                      + torch.where(use_line, n_act, torch.zeros_like(n_act)).sum() * P)
+            n_meas = (ok_pt.sum((1, 2)) * P
+                      + torch.where(use_line, n_act,
+                                    torch.zeros_like(n_act)).sum(-1) * P)
             chi2 = (chi2_pt + chi2_sg) / n_meas.to(f32).clamp_min(1.0)
             x = solve_psd(H, b, 1e-8)
-            bad = torch.isnan(x).any()
+            bad = torch.isnan(x).any(-1)
             worse = (chi2 > chi2_prev) if it > 0 else torch.zeros_like(bad)
-            stop = worse | bad | (x.abs().amax() < 1e-8)
+            stop = worse | bad | (x.abs().amax(-1) < 1e-8)
             dR, dt = lie.se3_exp(-x)
             R_new, t_new = lie.compose(R, t, dR, dt)
-            R_out = torch.where(worse, R_prev, torch.where(bad, R, R_new))
-            t_out = torch.where(worse, t_prev, torch.where(bad, t, t_new))
-            chi2_prev = torch.where(worse, chi2_prev, chi2)
-            R_prev, t_prev = R, t
-            R, t = R_out, t_out
-            alive = alive_new
-            if bool(stop):  # host sync: early exit as in the JAX loop
+            R_out = torch.where(worse[:, None, None], R_prev,
+                                torch.where(bad[:, None, None], R, R_new))
+            t_out = torch.where(worse[:, None], t_prev,
+                                torch.where(bad[:, None], t, t_new))
+            # a stopped sequence's carry stays frozen
+            R_prev = torch.where(done[:, None, None], R_prev, R)
+            t_prev = torch.where(done[:, None], t_prev, t)
+            R = torch.where(done[:, None, None], R, R_out)
+            t = torch.where(done[:, None], t, t_out)
+            chi2_prev = torch.where(done | worse, chi2_prev, chi2)
+            alive = torch.where(done[:, None], alive, alive_new)
+            done = done | stop
+            if not bool((~done).any()):  # host sync: every sequence stopped
                 break
         chi2_out = chi2_prev
         seg_alive = alive
-        n_pts_vis = vis_pt.sum().to(torch.int32)
-        n_seg_vis = (vis_sg & seg_alive).sum().to(torch.int32)
+        n_pts_vis = vis_pt.sum(-1).to(torch.int32)
+        n_seg_vis = (vis_sg & seg_alive).sum(-1).to(torch.int32)
 
     return AlignResult(R=R, t=t, n_tracked_pts=n_pts_vis,
                        n_tracked_segs=n_seg_vis, seg_alive=seg_alive,
@@ -227,7 +267,7 @@ def make_align_segments(sp_uv, ep_uv, s_bearing, e_bearing, s_depth, e_depth,
     q_ref = e_bearing * e_depth[..., None]
     alpha = torch.linspace(0.0, 1.0, n_samples, dtype=sp_uv.dtype,
                            device=sp_uv.device)
-    xyz = p_ref[:, None, :] + alpha[None, :, None] * (q_ref - p_ref)[:, None, :]
+    xyz = (p_ref[..., None, :] + alpha[:, None] * (q_ref - p_ref)[..., None, :])
     z = torch.where(xyz[..., 2].abs() < 1e-10,
                     torch.full_like(xyz[..., 2], 1e-10), xyz[..., 2])
     uv = torch.stack([fx * xyz[..., 0] / z + cx, fy * xyz[..., 1] / z + cy], -1)

@@ -21,8 +21,10 @@ the last bits: compare them with a tolerance.
 
 The host-side builders (`problem_from_map`, `problem_from_window`) and the
 write-backs are the JAX package's numpy code; the builders return numpy
-leaves, `problem_to` moves a problem onto a device. The batched (many
-sequences) and sharded solves are not ported.
+leaves, `problem_to` moves a problem onto a device. The solver takes a
+leading problem axis (`bundle_adjust_blob_batched`: R same-shape windows of
+several sequences in one solve); the sharded solve over a device mesh is
+not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 from plsvo_torch import lie
 from plsvo_torch.batlin import inv3x3
 from plsvo_torch.device import resolve_device
+from plsvo_torch.indexing import take
 
 
 class BAProblem(NamedTuple):
@@ -95,21 +98,41 @@ def _eye3(like):
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def _problems(fn):
+    """fn of a problem with a leading axis R, also taking one unbatched
+    problem (run as R = 1; its tensor results lose the axis)."""
+    def wrapper(prob, *args, **kw):
+        if prob.kf_R.dim() == 4:
+            return fn(prob, *args, **kw)
+
+        def one(x):
+            if not isinstance(x, BAProblem):
+                return x
+            return BAProblem(*[None if a is None else a[None] for a in x])
+
+        out = fn(one(prob), *[one(a) for a in args], **kw)
+        return tuple(a[0] if torch.is_tensor(a) else a for a in out)
+    wrapper.__name__ = fn.__name__
+    wrapper.__doc__ = fn.__doc__
+    return wrapper
+
+
 def _residuals_jacobians(prob: BAProblem, huber: float):
-    """Per-observation residuals e (L,O,2), pose jacobians Jc (L,O,2,6),
-    landmark jacobians Jp (L,O,2,3), robust weights w (L,O), chi2, n_obs."""
+    """Per-observation residuals e (R,L,O,2), pose jacobians Jc (R,L,O,2,6),
+    landmark jacobians Jp (R,L,O,2,3), robust weights w (R,L,O), chi2 (R,),
+    n_obs (R,), for R problems with a leading axis."""
     obs_kf = prob.obs_kf.long()
     kf = obs_kf.clamp_min(0)
-    R = prob.kf_R[kf]  # (L,O,3,3)
-    t = prob.kf_t[kf]
-    xyz = torch.einsum("loij,lj->loi", R, prob.lm_pos) + t
+    R = take(prob.kf_R, kf)  # (R,L,O,3,3)
+    t = take(prob.kf_t, kf)
+    xyz = torch.einsum("rloij,rlj->rloi", R, prob.lm_pos) + t
     zc = xyz[..., 2]
     z = torch.where(zc.abs() < 1e-8, torch.full_like(zc, 1e-8), zc)
     proj = xyz[..., :2] / z[..., None]
     fz = prob.obs_f[..., 2:3]
     obs = prob.obs_f[..., :2] / torch.where(fz.abs() < 1e-8,
                                             torch.full_like(fz, 1e-8), fz)
-    e = obs - proj  # (L,O,2)
+    e = obs - proj  # (R,L,O,2)
 
     x, y = xyz[..., 0], xyz[..., 1]
     zi = 1.0 / z
@@ -120,22 +143,22 @@ def _residuals_jacobians(prob: BAProblem, huber: float):
                         y * zi], -1)
     row1 = torch.stack([o, -zi, y * zi2, 1 + y * y * zi2, -x * y * zi2,
                         -x * zi], -1)
-    Jc = torch.stack([row0, row1], -2)  # (L,O,2,6)
+    Jc = torch.stack([row0, row1], -2)  # (R,L,O,2,6)
     # d e / d pos_w = -dproj/dxyz @ R
     dpx = torch.stack([zi, o, -x * zi2], -1)
     dpy = torch.stack([o, zi, -y * zi2], -1)
-    dproj = torch.stack([dpx, dpy], -2)  # (L,O,2,3)
-    Jp = -torch.einsum("loik,lokj->loij", dproj, R)
+    dproj = torch.stack([dpx, dpy], -2)  # (R,L,O,2,3)
+    Jp = -torch.einsum("rloik,rlokj->rloij", dproj, R)
 
     if prob.obs_line is not None:
         # line-endpoint rows: the signed distance of the projected endpoint
         # to the observed line l, Jacobian (l1, l2) chained through the
         # endpoint's; zero second row, so the assembly is the points'
-        l12 = prob.obs_line[..., :2]  # (L,O,2)
+        l12 = prob.obs_line[..., :2]  # (R,L,O,2)
         is_line = torch.linalg.norm(l12, dim=-1) > 0.5  # normalised or zero
         e_line = -((l12 * proj).sum(-1) + prob.obs_line[..., 2])
-        Jc_line = torch.einsum("loi,loik->lok", l12, Jc)  # (L,O,6)
-        Jp_line = torch.einsum("loi,loik->lok", l12, Jp)  # (L,O,3)
+        Jc_line = torch.einsum("rloi,rloik->rlok", l12, Jc)  # (R,L,O,6)
+        Jp_line = torch.einsum("rloi,rloik->rlok", l12, Jp)  # (R,L,O,3)
         e = torch.where(is_line[..., None],
                         torch.stack([e_line, torch.zeros_like(e_line)], -1), e)
         m = is_line[..., None, None]
@@ -144,20 +167,22 @@ def _residuals_jacobians(prob: BAProblem, huber: float):
         Jp = torch.where(m, torch.stack([Jp_line, torch.zeros_like(Jp_line)],
                                         -2), Jp)
 
-    valid = (prob.obs_valid & (obs_kf >= 0) & prob.lm_valid[:, None]
+    valid = (prob.obs_valid & (obs_kf >= 0) & prob.lm_valid[..., None]
              & (zc > 1e-6))
     en = torch.linalg.norm(e, dim=-1)
     w_huber = torch.where(en <= huber, torch.ones_like(en),
                           huber / en.clamp_min(1e-12))
     w = torch.where(valid, w_huber, torch.zeros_like(en))
-    chi2 = (w * en * en).sum()
-    return e, Jc, Jp, w, chi2, valid.sum()
+    chi2 = (w * en * en).sum((1, 2))
+    return e, Jc, Jp, w, chi2, valid.sum((1, 2))
 
 
+@_problems
 def _assemble_shard_direct(prob: BAProblem, huber: float, lm_damp: float):
-    """Reduced camera system of all rows at once. Returns (S (6K,6K),
-    b (6K,), Hpp_inv (L,3,3), b_p (L,3), W (L,O,6,3), chi2, n_obs)."""
-    K = prob.kf_R.shape[0]
+    """Reduced camera system of all rows of R problems at once. Returns
+    (S (R,6K,6K), b (R,6K), Hpp_inv (R,L,3,3), b_p (R,L,3), W (R,L,O,6,3),
+    chi2 (R,), n_obs (R,))."""
+    Rn, K = prob.kf_R.shape[:2]
     e, Jc, Jp, w, chi2, n_obs = _residuals_jacobians(prob, huber)
 
     # per-landmark blocks. Line-endpoint rows get two stabilisers, point
@@ -165,65 +190,73 @@ def _assemble_shard_direct(prob: BAProblem, huber: float, lm_damp: float):
     # keeps noisy observed planes from sliding both endpoints toward their
     # least-squares intersection, and a trace-relative damping of the weak
     # perpendicular direction
-    Hpp = torch.einsum("loik,loim,lo->lkm", Jp, Jp, w)  # (L,3,3)
+    Hpp = torch.einsum("rloik,rloim,rlo->rlkm", Jp, Jp, w)  # (R,L,3,3)
     if prob.obs_line is not None:
         row_is_line = (torch.linalg.norm(prob.obs_line[..., :2], dim=-1)
-                       > 0.5).any(dim=1)
+                       > 0.5).any(dim=2)
         tr = Hpp[..., 0, 0] + Hpp[..., 1, 1] + Hpp[..., 2, 2]
         damp = lm_damp + torch.where(row_is_line, 1e-4, 0.0) * tr / 3.0
         Hpp = Hpp + damp[..., None, None] * _eye3(Hpp)
         if prob.lm_dir is not None:
             stiff = torch.where(row_is_line, 10.0, 0.0) * tr
             Hpp = Hpp + stiff[..., None, None] * (
-                prob.lm_dir[:, :, None] * prob.lm_dir[:, None, :])
+                prob.lm_dir[..., :, None] * prob.lm_dir[..., None, :])
     else:
         Hpp = Hpp + lm_damp * _eye3(Hpp)
     Hpp_inv = inv3x3(Hpp)
-    b_p = -torch.einsum("loik,loi,lo->lk", Jp, e, w)  # (L,3)
+    b_p = -torch.einsum("rloik,rloi,rlo->rlk", Jp, e, w)  # (R,L,3)
 
     # pose blocks per observation
-    Hcc_blk = torch.einsum("loik,loim,lo->lokm", Jc, Jc, w)  # (L,O,6,6)
-    b_c_blk = -torch.einsum("loik,loi,lo->lok", Jc, e, w)  # (L,O,6)
-    W = torch.einsum("loik,loim,lo->lokm", Jc, Jp, w)  # (L,O,6,3)
+    Hcc_blk = torch.einsum("rloik,rloim,rlo->rlokm", Jc, Jc, w)
+    b_c_blk = -torch.einsum("rloik,rloi,rlo->rlok", Jc, e, w)
+    W = torch.einsum("rloik,rloim,rlo->rlokm", Jc, Jp, w)  # (R,L,O,6,3)
 
     obs_kf = prob.obs_kf.long()
     kf = obs_kf.clamp_min(0)
-    obs_on = prob.obs_valid & (obs_kf >= 0) & prob.lm_valid[:, None]
+    obs_on = prob.obs_valid & (obs_kf >= 0) & prob.lm_valid[..., None]
     zero = torch.zeros((), dtype=Hcc_blk.dtype, device=Hcc_blk.device)
+    # problem r's blocks live at rows [r*K*K, (r+1)*K*K) of one table
+    r = torch.arange(Rn, device=kf.device)
+    off_S = (r * K * K).view(Rn, 1, 1)
+    off_b = (r * K).view(Rn, 1, 1)
 
     # pose diagonal blocks and gradient, scattered into the (K*K) block
     # table by flat index kf_a * K + kf_b
-    S = torch.zeros((K * K, 6, 6), dtype=Hcc_blk.dtype, device=Hcc_blk.device)
-    b_c = torch.zeros((K, 6), dtype=Hcc_blk.dtype, device=Hcc_blk.device)
-    S.index_add_(0, (kf * (K + 1)).reshape(-1),
+    S = torch.zeros((Rn * K * K, 6, 6), dtype=Hcc_blk.dtype,
+                    device=Hcc_blk.device)
+    b_c = torch.zeros((Rn * K, 6), dtype=Hcc_blk.dtype, device=Hcc_blk.device)
+    S.index_add_(0, (kf * (K + 1) + off_S).reshape(-1),
                  torch.where(obs_on[..., None, None], Hcc_blk, zero)
                  .reshape(-1, 6, 6))
-    b_c.index_add_(0, kf.reshape(-1),
+    b_c.index_add_(0, (kf + off_b).reshape(-1),
                    torch.where(obs_on[..., None], b_c_blk, zero).reshape(-1, 6))
 
     # Schur: subtract W Hpp^-1 W^T for every pose pair sharing a landmark,
     # and W Hpp^-1 b_p from the gradient
-    WHinv = torch.einsum("lokm,lmn->lokn", W, Hpp_inv)  # (L,O,6,3)
-    pair = torch.einsum("loin,lpjn->lopij", WHinv, W)  # (L,O,O,6,6)
-    pair_on = obs_on[:, :, None] & obs_on[:, None, :]
-    S.index_add_(0, (kf[:, :, None] * K + kf[:, None, :]).reshape(-1),
+    WHinv = torch.einsum("rlokm,rlmn->rlokn", W, Hpp_inv)  # (R,L,O,6,3)
+    pair = torch.einsum("rloin,rlpjn->rlopij", WHinv, W)  # (R,L,O,O,6,6)
+    pair_on = obs_on[..., :, None] & obs_on[..., None, :]
+    S.index_add_(0, (kf[..., :, None] * K + kf[..., None, :]
+                     + off_S[..., None]).reshape(-1),
                  torch.where(pair_on[..., None, None], -pair, zero)
                  .reshape(-1, 6, 6))
-    grad_fix = torch.einsum("loin,ln->loi", WHinv, b_p)  # (L,O,6)
-    b_c.index_add_(0, kf.reshape(-1),
+    grad_fix = torch.einsum("rloin,rln->rloi", WHinv, b_p)  # (R,L,O,6)
+    b_c.index_add_(0, (kf + off_b).reshape(-1),
                    torch.where(obs_on[..., None], -grad_fix, zero)
                    .reshape(-1, 6))
 
-    S_flat = S.reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
-    return S_flat, b_c.reshape(6 * K), Hpp_inv, b_p, W, chi2, n_obs
+    S_flat = (S.reshape(Rn, K, K, 6, 6).permute(0, 1, 3, 2, 4)
+              .reshape(Rn, 6 * K, 6 * K))
+    return S_flat, b_c.reshape(Rn, 6 * K), Hpp_inv, b_p, W, chi2, n_obs
 
 
+@_problems
 def _assemble_shard(prob: BAProblem, huber: float, lm_damp: float,
                     chunk: int = 16384):
     """_assemble_shard_direct over landmark slabs of `chunk` rows when the
     problem is larger: the (L,O,O,6,6) pair tensor takes ~10 KB per
     landmark, so S and b accumulate slab by slab."""
-    L = prob.lm_pos.shape[0]
+    L = prob.lm_pos.shape[1]
     if L <= chunk:
         return _assemble_shard_direct(prob, huber, lm_damp)
     row_leaves = ("lm_pos", "lm_valid", "obs_kf", "obs_f", "obs_valid",
@@ -231,7 +264,7 @@ def _assemble_shard(prob: BAProblem, huber: float, lm_damp: float,
     S = b = chi2 = n_obs = None
     parts = []
     for lo in range(0, L, chunk):
-        sl = prob._replace(**{k: getattr(prob, k)[lo:lo + chunk]
+        sl = prob._replace(**{k: getattr(prob, k)[:, lo:lo + chunk]
                               for k in row_leaves
                               if getattr(prob, k) is not None})
         S_s, b_s, Hpp_inv, b_p, W, c2, n = _assemble_shard_direct(
@@ -241,61 +274,65 @@ def _assemble_shard(prob: BAProblem, huber: float, lm_damp: float,
         else:
             S, b, chi2, n_obs = S + S_s, b + b_s, chi2 + c2, n_obs + n
         parts.append((Hpp_inv, b_p, W))
-    Hpp_inv, b_p, W = (torch.cat(xs) for xs in zip(*parts))
+    Hpp_inv, b_p, W = (torch.cat(xs, 1) for xs in zip(*parts))
     return S, b, Hpp_inv, b_p, W, chi2, n_obs
 
 
 def _precond_solve(S, b, damping, kf_fixed=None):
-    """Damped, Jacobi-preconditioned solve of the reduced camera system:
-    Levenberg-style multiplicative damping (damping * diag(S)) and the
-    symmetric preconditioner D S D with D = diag(S)^-1/2. Gauge-fixed poses
-    are pinned inside the solve (rows and columns zeroed, unit diagonal),
-    so the system is not gauge-deficient and their step is exactly 0.
-    `solve_ex` (LU, no check of the factorisation's info) keeps the host
-    from waiting on the device."""
+    """Damped, Jacobi-preconditioned solve of the reduced camera systems
+    (R, 6K, 6K): Levenberg-style multiplicative damping (damping *
+    diag(S)) and the symmetric preconditioner D S D with D = diag(S)^-1/2.
+    Gauge-fixed poses are pinned inside the solve (rows and columns
+    zeroed, unit diagonal), so the system is not gauge-deficient and their
+    step is exactly 0. `solve_ex` (LU, no check of the factorisation's
+    info) keeps the host from waiting on the device."""
     if kf_fixed is not None:
-        free = (~kf_fixed).repeat_interleave(6).to(S.dtype)
-        S = S * free[:, None] * free[None, :] + torch.diag(1.0 - free)
+        free = (~kf_fixed).repeat_interleave(6, dim=-1).to(S.dtype)
+        S = (S * free[..., :, None] * free[..., None, :]
+             + torch.diag_embed(1.0 - free))
         b = b * free
-    d = torch.diagonal(S)
-    S = S + damping * torch.diag(d.clamp_min(1e-12))
-    d2 = torch.diagonal(S)
+    d = torch.diagonal(S, dim1=-2, dim2=-1)
+    S = S + damping * torch.diag_embed(d.clamp_min(1e-12))
+    d2 = torch.diagonal(S, dim1=-2, dim2=-1)
     Dinv = torch.rsqrt(d2.clamp_min(1e-20))
-    Sp = S * Dinv[:, None] * Dinv[None, :]
-    y = torch.linalg.solve_ex(Sp, (b * Dinv)[:, None]).result[:, 0]
+    Sp = S * Dinv[..., :, None] * Dinv[..., None, :]
+    y = torch.linalg.solve_ex(Sp, (b * Dinv)[..., None]).result[..., 0]
     return y * Dinv
 
 
 def _apply_updates(prob: BAProblem, dc: torch.Tensor, Hpp_inv, b_p, W):
     """Back-substitute landmark updates and apply pose updates."""
-    K = prob.kf_R.shape[0]
+    Rn, K = prob.kf_R.shape[:2]
     obs_kf = prob.obs_kf.long()
     kf = obs_kf.clamp_min(0)
-    obs_on = prob.obs_valid & (obs_kf >= 0) & prob.lm_valid[:, None]
-    dc_blocks = dc.reshape(K, 6)
+    obs_on = prob.obs_valid & (obs_kf >= 0) & prob.lm_valid[..., None]
+    dc_blocks = dc.reshape(Rn, K, 6)
     # dx_p = Hpp^-1 (b_p - sum_o W_o^T dc_{k(o)})
-    Wt_dc = torch.einsum("loij,loi->loj", W, torch.where(
-        obs_on[..., None], dc_blocks[kf], torch.zeros((), device=dc.device)))
-    dx = torch.einsum("lij,lj->li", Hpp_inv, b_p - Wt_dc.sum(1))
-    lm_new = torch.where(prob.lm_valid[:, None], prob.lm_pos + dx, prob.lm_pos)
+    Wt_dc = torch.einsum("rloij,rloi->rloj", W, torch.where(
+        obs_on[..., None], take(dc_blocks, kf),
+        torch.zeros((), device=dc.device)))
+    dx = torch.einsum("rlij,rlj->rli", Hpp_inv, b_p - Wt_dc.sum(2))
+    lm_new = torch.where(prob.lm_valid[..., None], prob.lm_pos + dx,
+                         prob.lm_pos)
 
     # pose update: T <- exp(dc) * T, gauge-fixed poses frozen
-    upd = torch.where(prob.kf_fixed[:, None], torch.zeros_like(dc_blocks),
+    upd = torch.where(prob.kf_fixed[..., None], torch.zeros_like(dc_blocks),
                       dc_blocks)
     dR, dt = lie.se3_exp(upd)
     R_new, t_new = lie.compose(dR, dt, prob.kf_R, prob.kf_t)
     return prob._replace(kf_R=R_new, kf_t=t_new, lm_pos=lm_new)
 
 
+@_problems
 def _pose_prior_terms(p: BAProblem, prob0: BAProblem, pose_prior: float):
     """Quadratic prior anchoring free poses to their input (tracked)
     estimates, cost (pose_prior/2)|log(T T_input^-1)|^2 per free keyframe:
     it pins the directions a weakly constrained window (planar scene, short
-    baselines) barely sees. Returns (S diagonal scalar, b term (6K,))."""
+    baselines) barely sees. Returns (S diagonal scalar, b term (R,6K))."""
     xi = lie.se3_log(*lie.compose(p.kf_R, p.kf_t,
                                   *lie.inverse(prob0.kf_R, prob0.kf_t)))
-    xi = torch.where(p.kf_fixed[:, None], torch.zeros_like(xi), xi)
-    return pose_prior, -pose_prior * xi.reshape(-1)
+    xi = torch.where(p.kf_fixed[..., None], torch.zeros_like(xi), xi)
+    return pose_prior, -pose_prior * xi.reshape(xi.shape[0], -1)
 
 
 def bundle_adjust(prob: BAProblem, *, n_iter: int = 10,
@@ -308,8 +345,19 @@ def bundle_adjust(prob: BAProblem, *, n_iter: int = 10,
     accept_gate=False drops the chi2 rollback check, halving the
     assemblies per iteration (the per-keyframe window uses it, with the
     pose prior keeping the steps conservative). The final chi2 and n_obs
-    take one closing assembly."""
-    K = prob.kf_R.shape[0]
+    take one closing assembly.
+
+    A leading axis on every leaf (kf_R (R, K, 3, 3), ...) solves R
+    same-shape problems at once: each problem's blocks scatter into its
+    own rows, and the R reduced systems solve as one batch."""
+    if prob.kf_R.dim() == 3:
+        p, st = bundle_adjust(
+            BAProblem(*[None if a is None else a[None] for a in prob]),
+            n_iter=n_iter, huber=huber, damping=damping, lm_damp=lm_damp,
+            pose_prior=pose_prior, accept_gate=accept_gate)
+        return (BAProblem(*[None if a is None else a[0] for a in p]),
+                BAStats(*[a[0] for a in st]))
+    K = prob.kf_R.shape[1]
     eye = torch.eye(6 * K, dtype=prob.kf_R.dtype, device=prob.kf_R.device)
     p = prob
     for _ in range(n_iter):
@@ -326,8 +374,9 @@ def bundle_adjust(prob: BAProblem, *, n_iter: int = 10,
         # keep the update only if chi2 did not blow up
         chi2_new = _assemble_shard(p_new, huber, lm_damp)[5]
         accept = chi2_new <= chi2 * 1.001
-        p = BAProblem(*[None if a is None else torch.where(accept, a, b_)
-                        for a, b_ in zip(p_new, p)])
+        p = BAProblem(*[None if a is None else torch.where(
+            accept.view((-1,) + (1,) * (a.dim() - 1)), a, b_)
+            for a, b_ in zip(p_new, p)])
     _, _, _, _, _, chi2, n_obs = _assemble_shard(p, huber, lm_damp)
     return p, BAStats(chi2=chi2, n_obs=n_obs)
 
@@ -411,7 +460,8 @@ def problem_blob(prob: BAProblem):
 
 
 def _problem_from_blob(blob: torch.Tensor, spec) -> BAProblem:
-    """Unpack the problem_blob layout (on the blob's device)."""
+    """Unpack the problem_blob layout (on the blob's device); a (R, n)
+    stack of blobs gives a problem with a leading axis R."""
     K, L, O, has_line = spec
     sizes = [K * 9, K * 3, K, L * 3, L, L * O, L * O * 3, L * O]
     shapes = [(K, 3, 3), (K, 3), (K,), (L, 3), (L,), (L, O), (L, O, 3),
@@ -419,7 +469,9 @@ def _problem_from_blob(blob: torch.Tensor, spec) -> BAProblem:
     if has_line:
         sizes += [L * O * 3, L * 3]
         shapes += [(L, O, 3), (L, 3)]
-    parts = [p.reshape(s) for p, s in zip(torch.split(blob, sizes), shapes)]
+    lead = blob.shape[:-1]
+    parts = [p.reshape(lead + s)
+             for p, s in zip(torch.split(blob, sizes, dim=-1), shapes)]
     (kf_R, kf_t, kf_fixed, lm_pos, lm_valid, obs_kf, obs_f,
      obs_valid) = parts[:8]
     return BAProblem(
@@ -435,10 +487,16 @@ def bundle_adjust_blob(blob: torch.Tensor, *, spec, n_iter: int = 10,
                        lm_damp: float = 1e-8, pose_prior: float = 0.0,
                        accept_gate: bool = True):
     """bundle_adjust with the problem delivered as one packed f32 tensor
-    (problem_blob), on the blob's device."""
+    (problem_blob), on the blob's device. R same-spec problems stacked as
+    (R, n) blobs are solved at once, every leaf of the returned problem and
+    stats carrying the leading R (the JAX package's vmapped
+    `bundle_adjust_blob_batched`, the same function here)."""
     return bundle_adjust(_problem_from_blob(blob, spec), n_iter=n_iter,
                          huber=huber, damping=damping, lm_damp=lm_damp,
                          pose_prior=pose_prior, accept_gate=accept_gate)
+
+
+bundle_adjust_blob_batched = bundle_adjust_blob
 
 
 def problem_from_window(map_state, cfg, core_slots, pad_bucket: int = 256):

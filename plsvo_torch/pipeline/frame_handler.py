@@ -21,7 +21,10 @@ calls late (None while the pipeline fills), and flush() drains the rest
 at the end of a sequence. The map
 lives on the device as a carry updated by one host delta blob per frame,
 and a keyframe's seed detection and local BA are dispatched at the
-keyframe and fetched with the next drain window. Other camera models
+keyframe and fetched with the next drain window. A batch runner
+(`parallel.multi_vo.BatchedVO`) drives several handlers through
+`_force_sync`, `_defer_seed_init` and per-instance replacements of the
+detection, local-BA and seed-table access points. Other camera models
 raise NotImplementedError. Host bookkeeping is the JAX package's numpy
 code, so the host decisions match.
 """
@@ -75,7 +78,8 @@ class FrameResult:
 def _detect_segments_levels(pyr, n_levels: int):
     """Raw tiled line candidates of the first n_levels pyramid levels, in
     level-0 pixels (the greedy grid dedup runs on the host after the
-    fetch)."""
+    fetch). Levels may carry a leading batch axis of R images."""
+    rows = pyr[0].dim() - 2  # the table's row axis
     parts = []
     for lvl in range(n_levels):
         det = line_ops.detect_segments_tiled(pyr[lvl], n_peaks=64,
@@ -86,7 +90,7 @@ def _detect_segments_levels(pyr, n_levels: int):
                                length=det.length * s)
         parts.append(det)
     return parts[0] if len(parts) == 1 else line_ops.SegmentTable(
-        *[torch.cat(xs) for xs in zip(*parts)])
+        *[torch.cat(xs, rows) for xs in zip(*parts)])
 
 
 def _empty_corner_grid(width: int, height: int, cell_size: int, device):
@@ -99,25 +103,38 @@ def _empty_corner_grid(width: int, height: int, cell_size: int, device):
         valid=torch.zeros(n_cells, dtype=torch.bool, device=device))
 
 
-def _kf_detect_program(pyr, occ_uv, occ_ok, *, use_pt, use_ls, use_edgelets,
-                       n_pyr, n_pyr_segs, cell_size, score_threshold,
-                       mag_threshold, width, height):
-    """Keyframe seed detection: FAST grid (an empty grid without points),
-    edgelets (when use_pt and use_edgelets), tiled line segments (raw
-    candidates, when use_ls) and cell occupancy."""
+def _kf_detect_program_batched(pyrs, occ_uv, occ_ok, *, use_pt, use_ls,
+                               use_edgelets, n_pyr, n_pyr_segs, cell_size,
+                               score_threshold, mag_threshold, width, height):
+    """Keyframe seed detection of R requests: FAST grid (an empty grid
+    without points), edgelets (when use_pt and use_edgelets), tiled line
+    segments (raw candidates, when use_ls) and cell occupancy. pyrs are the
+    levels stacked (R, h, w), occ_uv (R, C, 2), occ_ok (R, C). K1 scores
+    all R x n_pyr images together (one launch per 32 images), the segments
+    of all requests go through the detector's batch axis, and the grid
+    selection, edgelets and occupancy run per request. Every result
+    carries the leading R; a single handler's detection is R = 1."""
+    from plsvo_torch.ops.fast_score import fast_score_levels
+
+    R = occ_uv.shape[0]
     if use_pt:
-        grid = detection.detect_fast_grid(pyr[:n_pyr], cell_size=cell_size,
-                                          score_threshold=score_threshold)
+        scored = fast_score_levels([pyrs[lv][r] for r in range(R)
+                                    for lv in range(n_pyr)])
+        grids = [detection.detect_fast_grid(
+            [pyrs[lv][r] for lv in range(n_pyr)], cell_size=cell_size,
+            score_threshold=score_threshold,
+            scored=scored[r * n_pyr:(r + 1) * n_pyr]) for r in range(R)]
     else:
-        grid = _empty_corner_grid(width, height, cell_size, occ_uv.device)
+        grids = [_empty_corner_grid(width, height, cell_size, occ_uv.device)] * R
     egrid = None
     if use_pt and use_edgelets:
-        egrid = detection.detect_edgelets_grid(pyr[0], cell_size=cell_size,
-                                               mag_threshold=mag_threshold)
-    segs = _detect_segments_levels(pyr, n_pyr_segs) if use_ls else None
-    occupied = detection.occupancy_from_positions(occ_uv, occ_ok, width,
-                                                  height, cell_size)
-    return grid, segs, occupied, egrid
+        egrid = fused.stack_trees([detection.detect_edgelets_grid(
+            pyrs[0][r], cell_size=cell_size, mag_threshold=mag_threshold)
+            for r in range(R)])
+    segs = _detect_segments_levels(pyrs, n_pyr_segs) if use_ls else None
+    occupied = torch.stack([detection.occupancy_from_positions(
+        occ_uv[r], occ_ok[r], width, height, cell_size) for r in range(R)])
+    return fused.stack_trees(grids), segs, occupied, egrid
 
 
 def _check_supported(cam, cfg: Config):
@@ -148,6 +165,12 @@ class FrameHandlerMono:
         self.permon = PerformanceMonitor()
         self.frame_id = 0
         self.n_relocalizations = 0
+        # BatchedVO's controls: _force_sync runs DEFAULT frames through the
+        # sync step even in pipelined mode (the batch runner dispatches the
+        # pipelined steps itself); _defer_seed_init defers a keyframe's
+        # seed detection and local BA to the runner's drain fetch even then
+        self._force_sync = False
+        self._defer_seed_init = False
         self._reset()
 
     def _new_map(self):
@@ -445,7 +468,7 @@ class FrameHandlerMono:
         """Track a DEFAULT-stage frame from its device image (and its
         pyramid, where the caller built one): the one place that picks
         the sync step or, in pipelined mode, the dispatch."""
-        if self.cfg.pipeline.pipelined:
+        if self.cfg.pipeline.pipelined and not self._force_sync:
             return self._process_frame_pipelined(img, ts)
         if pyr is None:
             with self.permon.timer("pyramid_creation"):
@@ -529,9 +552,11 @@ class FrameHandlerMono:
         """Apply every queued map delta to the device carry now (as the
         next steps would) and return it: after flush() it equals
         fused.map_tables_upload(self.map). Changes that the deltas cannot
-        carry (MapState.transform) rebuild it from a full upload."""
+        carry (MapState.transform), and a chain that a failed frame broke
+        (the next step restarts from a full upload), rebuild it from a
+        full upload."""
         m = self.map
-        if m.mt_needs_resync(self._mt_ne):
+        if self._mt_carry is None or m.mt_needs_resync(self._mt_ne):
             self._mt_carry = fused.map_tables_from_state(m)
             m.mt_mark_clean()
         while m.mt_dirty_pending():
@@ -592,6 +617,9 @@ class FrameHandlerMono:
                     self._pending_seed_init.extend(q_init)
                 self._pipe_q.clear()
                 self._fetch_q.clear()
+                # the dropped steps wrote their structure updates into the
+                # carry, and the host never applies them
+                self._mt_carry = None
                 return
             # _post_fused points last_frame at each finished frame; the
             # newest dispatched frame stays the alignment reference
@@ -790,7 +818,7 @@ class FrameHandlerMono:
             m.add_keyframe(frame)
         self.batch_counter += 1
         with self.permon.timer("kf_init_seeds"):
-            if self.cfg.pipeline.pipelined and d_mean is not None:
+            if self._deferred() and d_mean is not None:
                 # the detection's fetch rides the next drain window
                 kf_slot = int(np.where(m.kf_frame_id == frame.frame_id)[0][0])
                 self._pending_seed_init.append(
@@ -822,10 +850,16 @@ class FrameHandlerMono:
             return
         blob, spec = ba.problem_blob(prob)
         handles = self._solve_local_ba(blob, spec)
-        if self.cfg.pipeline.pipelined:
+        if self._deferred():
             self._pending_ba.append((handles, meta))
         else:
             self._write_back_ba(*fused.fetch(handles), meta)
+
+    def _deferred(self) -> bool:
+        """Whether a keyframe's seed detection and local BA ride a later
+        drain fetch (pipelined mode, or a batch runner's drain)."""
+        return (self._defer_seed_init
+                or (self.cfg.pipeline.pipelined and not self._force_sync))
 
     def _write_back_ba(self, kf_R, kf_t, lm_pos, meta):
         """Guarded write-back of one fetched BA result; logs the keyframes
@@ -872,17 +906,21 @@ class FrameHandlerMono:
         handler collects the requests of several sequences here)."""
         return self._dispatch_seed_detection(frame)
 
-    def _dispatch_seed_detection(self, frame: FrameState):
+    def _detect_statics(self) -> dict:
         pl = self.cfg.pipeline
-        occ_uv, occ_ok = self._occupancy_inputs(frame)
-        return _kf_detect_program(
-            frame.pyr, self._dev(occ_uv), self._dev(occ_ok),
+        return dict(
             use_pt=pl.has_pt, use_ls=pl.has_ls,
             use_edgelets=pl.use_edgelets and pl.has_pt, n_pyr=pl.n_pyr_levels,
             n_pyr_segs=pl.n_pyr_levels_segs, cell_size=pl.grid_size,
             score_threshold=pl.triang_min_corner_score,
             mag_threshold=pl.edgelet_grad_thresh,
             width=self.cam.width, height=self.cam.height)
+
+    def _dispatch_seed_detection(self, frame: FrameState):
+        occ_uv, occ_ok = self._occupancy_inputs(frame)
+        return fused._first(_kf_detect_program_batched(
+            [p[None] for p in frame.pyr], self._dev(occ_uv)[None],
+            self._dev(occ_ok)[None], **self._detect_statics()))
 
     def _init_seeds(self, frame: FrameState, d_mean, d_min):
         """Spawn seeds in grid cells not already holding a feature."""
@@ -919,6 +957,23 @@ class FrameHandlerMono:
             self._install_line_seeds(kf_slot, self._dedup_segments_host(segs),
                                      mu, sigma2, z_range)
 
+    def _install_frame(self) -> int:
+        """The newest frame whose step was dispatched before a seed install
+        now: the harvest keeps the mirror's alive flags for installs at or
+        after a result's frame. Here the current frame (add_image counts it
+        after its step); a batch runner that counts at dispatch replaces
+        this."""
+        return self.frame_id
+
+    # The seed tables' access points: a batch runner that keeps every
+    # sequence's tables stacked on the device replaces these per instance
+    def _get_seed_tables(self):
+        return self.pt_seeds, self.ln_seeds
+
+    def _set_seed_tables(self, pt_seeds, ln_seeds):
+        self.pt_seeds = pt_seeds
+        self.ln_seeds = ln_seeds
+
     def _install_point_seeds(self, kf_slot, uv, f, lvl, typ, gdir, mu, sigma2,
                              z_range):
         free = np.where(~self._seed_alive)[0][: len(uv)]
@@ -933,7 +988,7 @@ class FrameHandlerMono:
         sh["type"][free] = typ[:k]
         sh["dir"][free] = gdir[:k]
         self._seed_alive[free] = True
-        self._seed_install_frame[free] = self.frame_id
+        self._seed_install_frame[free] = self._install_frame()
         B = self._bucket(k, self.cfg.caps.max_seeds)
         rows = np.zeros(B, np.float32)
         rows[:k] = free
@@ -947,9 +1002,10 @@ class FrameHandlerMono:
         lv[:k] = lvl[:k]
         blob = np.concatenate([rows, mask, np.full(B, kf_slot, np.float32),
                                uvp.ravel(), fp.ravel(), lv])
-        self.pt_seeds = df.scatter_new_point_seeds_blob(
-            self.pt_seeds, self._dev(blob), B=B,
-            scalars=(mu, sigma2, z_range, self.batch_counter))
+        pt_tab, ln_tab = self._get_seed_tables()
+        self._set_seed_tables(df.scatter_new_point_seeds_blob(
+            pt_tab, self._dev(blob), B=B,
+            scalars=(mu, sigma2, z_range, self.batch_counter)), ln_tab)
 
     def _install_line_seeds(self, kf_slot, segs, mu, sigma2, z_range):
         sp = segs.sp[segs.valid]
@@ -968,7 +1024,7 @@ class FrameHandlerMono:
         lh["ef"][free] = ef
         lh["level"][free] = 0
         self._lnseed_alive[free] = True
-        self._lnseed_install_frame[free] = self.frame_id
+        self._lnseed_install_frame[free] = self._install_frame()
         B = self._bucket(k, self.cfg.caps.max_seed_segs)
         rows = np.zeros(B, np.float32)
         rows[:k] = free
@@ -982,9 +1038,10 @@ class FrameHandlerMono:
             np.concatenate([ep[:k], z2]).ravel(),
             np.concatenate([sf, z3]).ravel(), np.concatenate([ef, z3]).ravel(),
             np.zeros(B, np.float32)])
-        self.ln_seeds = df.scatter_new_line_seeds_blob(
-            self.ln_seeds, self._dev(blob), B=B,
-            scalars=(mu, sigma2, z_range, self.batch_counter))
+        pt_tab, ln_tab = self._get_seed_tables()
+        self._set_seed_tables(pt_tab, df.scatter_new_line_seeds_blob(
+            ln_tab, self._dev(blob), B=B,
+            scalars=(mu, sigma2, z_range, self.batch_counter)))
 
     @staticmethod
     def _bucket(n: int, cap: int) -> int:
@@ -1067,10 +1124,12 @@ class FrameHandlerMono:
             self.last_frame.R_f_w, self.last_frame.t_f_w,
             self._fx, self._fy, self._cx, self._cy)
         if slot is None:
+            ready = self._ready
             self._reset()
-            return FrameResult(frame.frame_id, STAGE_RELOCALIZING,
-                               QUALITY_INSUFFICIENT, 0, 0, False,
-                               frame.R_f_w, frame.t_f_w)
+            self._ready = ready
+            return self._in_order(FrameResult(
+                frame.frame_id, STAGE_RELOCALIZING, QUALITY_INSUFFICIENT, 0,
+                0, False, frame.R_f_w, frame.t_f_w))
         kf_frame = self._frame_from_kf(slot, ts)
         pts_in, segs_in = self._align_inputs_from_frame(kf_frame)
         ares = sparse_align.sparse_img_align(
@@ -1096,9 +1155,17 @@ class FrameHandlerMono:
             return FrameResult(res.frame_id, STAGE_RELOCALIZING, res.quality,
                                res.n_pt_matches, res.n_seg_matches,
                                res.is_keyframe, res.R_f_w, res.t_f_w)
-        return FrameResult(frame.frame_id, STAGE_RELOCALIZING,
-                           QUALITY_INSUFFICIENT, 0, 0, False,
-                           frame.R_f_w, frame.t_f_w)
+        return self._in_order(FrameResult(
+            frame.frame_id, STAGE_RELOCALIZING, QUALITY_INSUFFICIENT, 0, 0,
+            False, frame.R_f_w, frame.t_f_w))
+
+    def _in_order(self, res: FrameResult) -> FrameResult:
+        """A result made now, returned after the earlier frames' results
+        not yet returned (pipelined mode), so results stay in frame order."""
+        if not self._ready:
+            return res
+        self._ready.append(res)
+        return self._ready.pop(0)
 
     def _frame_from_kf(self, slot: int, ts) -> FrameState:
         m = self.map

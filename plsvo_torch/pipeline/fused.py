@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from plsvo_torch.image import build_pyramid
-from plsvo_torch.indexing import (gather_clamped, nonzero_padded, scatter_drop,
-                                  top_k_stable)
+from plsvo_torch.indexing import (flat_rows, nonzero_padded, scatter_drop,
+                                  take, top_k_stable)
 from plsvo_torch.ops import pose_opt, sparse_align, struct_opt
 from plsvo_torch.pipeline import reprojector
 
@@ -124,13 +124,13 @@ def pack_blob_host(arrays) -> np.ndarray:
 
 
 def unpack_blob(blob: torch.Tensor, specs):
-    """Slice a flat f32 blob back into tensors; specs: ((shape, kind), ...)
-    with kind in {"f32", "bool", "i32"}."""
+    """Slice a flat f32 blob (or a (B, L) batch of blobs) back into tensors;
+    specs: ((shape, kind), ...) with kind in {"f32", "bool", "i32"}."""
     out = []
     off = 0
     for shape, kind in specs:
         n = int(np.prod(shape)) if shape else 1
-        a = blob[off:off + n].reshape(shape)
+        a = blob[..., off:off + n].reshape(blob.shape[:-1] + tuple(shape))
         if kind == "bool":
             a = a > 0.5
         elif kind == "i32":
@@ -184,6 +184,25 @@ def _unproject(uv, fx, fy, cx, cy):
     return f / torch.linalg.norm(f, dim=-1, keepdim=True)
 
 
+def _scatter_rows(tab, rows, valid, src):
+    """tab (B, n, ...) with tab[b, rows[b, k]] = src[b, k] where valid
+    (rows out of [0, n) drop); within a sequence the last write wins."""
+    B, n = tab.shape[:2]
+    flat = scatter_drop(tab.reshape((B * n,) + tab.shape[2:]),
+                        flat_rows(rows, n, valid).reshape(-1),
+                        src if not torch.is_tensor(src) or src.dim() == 0
+                        else src.reshape((-1,) + tab.shape[2:]))
+    return flat.reshape(tab.shape)
+
+
+def _per_seq(v, like):
+    """A per-sequence value (number or (B,) tensor) broadcast over the rows
+    of `like` (B, n)."""
+    if not torch.is_tensor(v):
+        return float(v)
+    return v.to(torch.float32)[:, None].expand(like.shape)
+
+
 def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                      R_last, t_last, mt: MapTables, pt_last_optim,
                      ln_last_optim, fx, fy, cx, cy, *,
@@ -196,21 +215,26 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                      has_ls: bool = False, has_edgelets: bool = False,
                      n_struct_pts: int = 20, n_struct_segs: int = 20,
                      struct_iters: int = 5) -> FusedResult:
+    """The tracked-frame step of B sequences: every input carries a leading
+    batch axis (pyramid levels (B, h, w), tables (B, n, ...), poses
+    (B, 3, 3)), and every op serves all B sequences in one pass."""
     dev = last.pt_uv.device
+    B = R_last.shape[0]
     # ---- 1. sparse image alignment against the last frame ----
     pts_in = sparse_align.AlignPoints(
-        xyz_ref=last.pt_f * last.pt_depth[:, None], uv_ref=last.pt_uv,
+        xyz_ref=last.pt_f * last.pt_depth[..., None], uv_ref=last.pt_uv,
         valid=last.pt_valid)
     segs_in = sparse_align.make_align_segments(
         last.seg_suv, last.seg_euv, last.seg_sf, last.seg_ef, last.seg_sdepth,
         last.seg_edepth, last.seg_valid, n_samples=n_line_samples,
         fx=fx, fy=fy, cx=cx, cy=cy)
     ares = sparse_align.sparse_img_align(
-        last_pyr, cur_pyr, pts_in, segs_in, torch.eye(3, device=dev),
-        torch.zeros(3, device=dev), fx, fy, cx, cy, levels=levels,
+        last_pyr, cur_pyr, pts_in, segs_in,
+        torch.eye(3, device=dev).expand(B, 3, 3),
+        torch.zeros((B, 3), device=dev), fx, fy, cx, cy, levels=levels,
         n_iter=n_iter_align, patch_size=patch_align)
     R_cur = ares.R @ R_last
-    t_cur = ares.R @ t_last + ares.t
+    t_cur = (ares.R @ t_last[..., None])[..., 0] + ares.t
 
     # ---- 2. reprojection + batched refinement (points, and with lines
     # both segment endpoints in the same batch) ----
@@ -236,53 +260,63 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
             *pt_args, mt.kf_R, mt.kf_t, kf_flat, cur_pyr[:n_pyr_use], R_cur,
             t_cur, fx, fy, cx, cy, cell_size=cell_size, max_out=max_pts_out,
             **rkw)
-        z2 = torch.zeros((M, 2), device=dev)
-        zi = torch.zeros(M, dtype=torch.int32, device=dev)
-        zb = torch.zeros(M, dtype=torch.bool, device=dev)
+        z2 = torch.zeros((B, M, 2), device=dev)
+        zi = torch.zeros((B, M), dtype=torch.int32, device=dev)
+        zb = torch.zeros((B, M), dtype=torch.bool, device=dev)
         seg_res = reprojector.ReprojSegResult(
             lm_idx=zi.long(), selected=zb, s_uv=z2, e_uv=z2, level=zi,
-            matched=zb, n_attempts=zi[0], n_matches=zi[0])
-        seg_line = seg_sf_cur = seg_ef_cur = torch.zeros((M, 3), device=dev)
+            matched=zb, n_attempts=zi[:, 0], n_matches=zi[:, 0])
+        seg_line = seg_sf_cur = seg_ef_cur = torch.zeros((B, M, 3), device=dev)
     pt_f_cur = _unproject(pt_res.uv, fx, fy, cx, cy)
     seg_lm = seg_res.lm_idx
     seg_matched = seg_res.matched
 
     # ---- 3. pose optimization on the matched features ----
     inp = pose_opt.PoseOptInputs(
-        pt_f=pt_f_cur, pt_level=pt_res.level, pt_pos_w=mt.pt_pos[pt_res.lm_idx],
-        pt_valid=pt_res.matched, seg_line=seg_line, seg_level=seg_res.level,
-        seg_spos_w=mt.ln_spos[seg_lm], seg_epos_w=mt.ln_epos[seg_lm],
-        seg_valid=seg_matched)
+        pt_f=pt_f_cur, pt_level=pt_res.level,
+        pt_pos_w=take(mt.pt_pos, pt_res.lm_idx), pt_valid=pt_res.matched,
+        seg_line=seg_line, seg_level=seg_res.level,
+        seg_spos_w=take(mt.ln_spos, seg_lm),
+        seg_epos_w=take(mt.ln_epos, seg_lm), seg_valid=seg_matched)
     pres = pose_opt.optimize_pose(inp, R_cur, t_cur, fx, n_iter=poseopt_iters,
                                   n_iter_ref=poseopt_iters_ref,
                                   reproj_thresh=poseopt_thresh)
 
-    # ---- 4. structure optimization: the least-recently-optimized matches ----
+    # ---- 4. structure optimization: the least-recently-optimized matches
+    # of each sequence, all sequences' landmarks in one solve ----
     ninf = torch.full((), -float("inf"), device=dev)
-    key_pt = torch.where(pt_res.matched, -pt_last_optim[pt_res.lm_idx], ninf)
+    key_pt = torch.where(pt_res.matched,
+                         -take(pt_last_optim, pt_res.lm_idx), ninf)
     _, sel_i = top_k_stable(key_pt, n_struct_pts)
-    st_pt_lm = pt_res.lm_idx[sel_i]
-    st_pt_valid = pt_res.matched[sel_i]
-    key_sg = torch.where(seg_matched, -ln_last_optim[seg_lm], ninf)
+    st_pt_lm = pt_res.lm_idx.gather(1, sel_i)
+    st_pt_valid = pt_res.matched.gather(1, sel_i)
+    key_sg = torch.where(seg_matched, -take(ln_last_optim, seg_lm), ninf)
     _, ssel_i = top_k_stable(key_sg, n_struct_segs)
-    st_ln_lm = seg_lm[ssel_i]
-    st_ln_valid = seg_matched[ssel_i]
+    st_ln_lm = seg_lm.gather(1, ssel_i)
+    st_ln_valid = seg_matched.gather(1, ssel_i)
 
     def obs_of(obs_kf, obs_f, rows):
-        okf = obs_kf[rows].long()
+        okf = take(obs_kf, rows).long()
         kc = okf.clamp_min(0)
-        return struct_opt.StructObs(R_f_w=mt.kf_R[kc], t_f_w=mt.kf_t[kc],
-                                    f_obs=obs_f[rows], valid=okf >= 0)
+        return struct_opt.StructObs(R_f_w=take(mt.kf_R, kc),
+                                    t_f_w=take(mt.kf_t, kc),
+                                    f_obs=take(obs_f, rows), valid=okf >= 0)
+
+    def rows_of(*xs):
+        a = torch.cat(xs, 1)
+        return a.reshape((-1,) + a.shape[2:])
 
     parts = [obs_of(mt.pt_obs_kf, mt.pt_obs_f, st_pt_lm),
              obs_of(mt.ln_obs_kf, mt.ln_obs_sf, st_ln_lm),
              obs_of(mt.ln_obs_kf, mt.ln_obs_ef, st_ln_lm)]
-    all_obs = struct_opt.StructObs(*[torch.cat(xs) for xs in zip(*parts)])
-    all_pos = torch.cat([mt.pt_pos[st_pt_lm], mt.ln_spos[st_ln_lm],
-                         mt.ln_epos[st_ln_lm]])
-    all_valid = torch.cat([st_pt_valid, st_ln_valid, st_ln_valid])
+    all_obs = struct_opt.StructObs(*[rows_of(*xs) for xs in zip(*parts)])
+    all_pos = rows_of(take(mt.pt_pos, st_pt_lm), take(mt.ln_spos, st_ln_lm),
+                      take(mt.ln_epos, st_ln_lm))
+    all_valid = rows_of(st_pt_valid, st_ln_valid, st_ln_valid)
     all_new, all_impr = struct_opt.optimize_points(all_pos, all_obs, all_valid,
                                                    n_iter=struct_iters)
+    all_new = all_new.reshape(B, -1, 3)
+    all_impr = all_impr.reshape(B, -1)
     Kp, Kl = n_struct_pts, n_struct_segs
     return FusedResult(
         R_f_w=pres.R, t_f_w=pres.t, cov=pres.cov,
@@ -290,22 +324,26 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
         pt_f_cur=pt_f_cur, seg=seg_res, seg_inlier=pres.seg_inlier,
         seg_sf_cur=seg_sf_cur, seg_ef_cur=seg_ef_cur, seg_line_cur=seg_line,
         st_pt_lm=st_pt_lm,
-        st_pt_pos=all_new[:Kp], st_pt_valid=st_pt_valid & all_impr[:Kp],
-        st_ln_lm=st_ln_lm, st_ln_spos=all_new[Kp:Kp + Kl],
-        st_ln_epos=all_new[Kp + Kl:],
-        st_ln_valid=st_ln_valid & all_impr[Kp:Kp + Kl] & all_impr[Kp + Kl:])
+        st_pt_pos=all_new[:, :Kp], st_pt_valid=st_pt_valid & all_impr[:, :Kp],
+        st_ln_lm=st_ln_lm, st_ln_spos=all_new[:, Kp:Kp + Kl],
+        st_ln_epos=all_new[:, Kp + Kl:],
+        st_ln_valid=(st_ln_valid & all_impr[:, Kp:Kp + Kl]
+                     & all_impr[:, Kp + Kl:]))
 
 
 def apply_struct_to_mt(mt: MapTables, res: FusedResult) -> MapTables:
     """Scatter this frame's structure-opt refinements into the tables (the
-    host applies the same values to its mirror when it fetches them)."""
-    P = mt.pt_pos.shape[0]
-    L = mt.ln_spos.shape[0]
-    rp = torch.where(res.st_pt_valid, res.st_pt_lm, torch.full_like(res.st_pt_lm, P))
-    rl = torch.where(res.st_ln_valid, res.st_ln_lm, torch.full_like(res.st_ln_lm, L))
-    return mt._replace(pt_pos=scatter_drop(mt.pt_pos, rp, res.st_pt_pos),
-                       ln_spos=scatter_drop(mt.ln_spos, rl, res.st_ln_spos),
-                       ln_epos=scatter_drop(mt.ln_epos, rl, res.st_ln_epos))
+    host applies the same values to its mirror when it fetches them); with
+    or without a leading batch axis."""
+    if mt.kf_R.dim() == 3:
+        return _first(apply_struct_to_mt(_one(mt), _one(res)))
+    return mt._replace(
+        pt_pos=_scatter_rows(mt.pt_pos, res.st_pt_lm, res.st_pt_valid,
+                             res.st_pt_pos),
+        ln_spos=_scatter_rows(mt.ln_spos, res.st_ln_lm, res.st_ln_valid,
+                              res.st_ln_spos),
+        ln_epos=_scatter_rows(mt.ln_epos, res.st_ln_lm, res.st_ln_valid,
+                              res.st_ln_epos))
 
 
 # ---------------------------------------------------------------------------
@@ -344,13 +382,14 @@ def mt_evict_width(max_kfs: int, pipeline_depth: int) -> int:
     return max(MT_DELTA_NE, max_kfs, 2 * pipeline_depth)
 
 
-def _scatter_obs(tab, rows, slots, src):
-    """tab[rows[k], slots[k]] = src[k] for (P, O, ...) tab; rows out of
-    [0, P) drop."""
-    P, O = tab.shape[:2]
-    flat = torch.where((rows >= 0) & (rows < P), rows * O + slots,
-                       torch.full_like(rows, P * O))
-    out = scatter_drop(tab.reshape((P * O,) + tab.shape[2:]), flat, src)
+def _scatter_obs(tab, rows_g, slots, src):
+    """tab[b, r, slots[k]] = src[k] for (B, P, O, ...) tab, where rows_g (k,)
+    are rows of the tables flattened to (B * P) (B * P: dropped)."""
+    B, P, O = tab.shape[:3]
+    n = B * P
+    flat = torch.where(rows_g < n, rows_g * O + slots,
+                       torch.full_like(rows_g, n * O))
+    out = scatter_drop(tab.reshape((n * O,) + tab.shape[3:]), flat, src)
     return out.reshape(tab.shape)
 
 
@@ -359,34 +398,50 @@ def apply_mt_deltas(mt: MapTables, blob: torch.Tensor, *,
                     OP: int = MT_DELTA_OP, OL: int = MT_DELTA_OL,
                     NE: int = MT_DELTA_NE) -> MapTables:
     """A host delta blob applied to the device carry, with no host sync;
-    rows outside the tables drop, as the JAX package's mode="drop"."""
-    K = mt.kf_R.shape[0]
-    P = mt.pt_pos.shape[0]
-    L = mt.ln_spos.shape[0]
+    rows outside the tables drop, as the JAX package's mode="drop". A
+    (B, L) batch of blobs applies to a carry with a leading batch axis,
+    each sequence's blob to its own tables, all in one pass."""
+    if blob.dim() == 1:
+        return MapTables(*[a[0] for a in apply_mt_deltas(
+            MapTables(*[a[None] for a in mt]), blob[None], DP=DP, DL=DL,
+            OP=OP, OL=OL, NE=NE)])
+    B, K = mt.kf_R.shape[:2]
+    P = mt.pt_pos.shape[1]
+    L = mt.ln_spos.shape[1]
     off = 0
 
-    def take(n, shape=None):
+    def take_(n, shape=None):
         nonlocal off
-        a = blob[off:off + n]
+        a = blob[:, off:off + n]
         off += n
-        return a if shape is None else a.reshape(shape)
+        return a if shape is None else a.reshape((B,) + shape)
 
-    evict = take(NE).to(mt.pt_obs_kf.dtype)
-    kf_R = take(K * 9, (K, 3, 3))
-    kf_t = take(K * 3, (K, 3))
+    def flat(a):
+        return a.reshape((-1,) + a.shape[2:])
+
+    evict = take_(NE).to(mt.pt_obs_kf.dtype)
+    kf_R = take_(K * 9, (K, 3, 3))
+    kf_t = take_(K * 3, (K, 3))
+
     # 1. eviction sweeps of the observation tables
-    pt_obs_kf = torch.where(torch.isin(mt.pt_obs_kf, evict),
-                            torch.full_like(mt.pt_obs_kf, -1), mt.pt_obs_kf)
-    ln_obs_kf = torch.where(torch.isin(mt.ln_obs_kf, evict),
-                            torch.full_like(mt.ln_obs_kf, -1), mt.ln_obs_kf)
+    def sweep(obs_kf):
+        hit = (obs_kf[..., None] == evict[:, None, None, :]).any(-1)
+        return torch.where(hit, torch.full_like(obs_kf, -1), obs_kf)
+
+    pt_obs_kf = sweep(mt.pt_obs_kf)
+    ln_obs_kf = sweep(mt.ln_obs_kf)
 
     def row_head(width, cap):
-        rows = take(width).long()
-        mask = take(width) > 0.5
-        reset = take(width) > 0.5
-        drop = torch.full_like(rows, cap)
-        return (torch.where(mask, rows, drop),
-                torch.where(mask & reset, rows, drop))
+        rows = take_(width).long()
+        mask = take_(width) > 0.5
+        reset = take_(width) > 0.5
+        return (flat_rows(rows, cap, mask).reshape(-1),
+                flat_rows(rows, cap, mask & reset).reshape(-1))
+
+    def scatter_flat(tab, rows_g, src):
+        n = tab.shape[0] * tab.shape[1]
+        out = scatter_drop(tab.reshape((n,) + tab.shape[2:]), rows_g, src)
+        return out.reshape(tab.shape)
 
     # 2. point rows, then their obs resets
     rp, rp_reset = row_head(DP, P)
@@ -396,8 +451,9 @@ def apply_mt_deltas(mt: MapTables, blob: torch.Tensor, *,
                         ("pt_anchor_level", 1), ("pt_anchor_type", 1),
                         ("pt_anchor_dir", 2)):
         tab = getattr(mt, name)
-        new[name] = scatter_drop(tab, rp, take(DP * width, (DP,) + tab.shape[1:]))
-    pt_obs_kf = scatter_drop(pt_obs_kf, rp_reset, -1)
+        new[name] = scatter_flat(tab, rp, flat(take_(
+            DP * width, (DP,) + tab.shape[2:])))
+    pt_obs_kf = scatter_flat(pt_obs_kf, rp_reset, -1)
     # 3. line rows, then their obs resets
     rl, rl_reset = row_head(DL, L)
     for name, width in (("ln_spos", 3), ("ln_epos", 3), ("ln_status", 1),
@@ -405,25 +461,31 @@ def apply_mt_deltas(mt: MapTables, blob: torch.Tensor, *,
                         ("ln_anchor_euv", 2), ("ln_anchor_sf", 3),
                         ("ln_anchor_ef", 3), ("ln_anchor_level", 1)):
         tab = getattr(mt, name)
-        new[name] = scatter_drop(tab, rl, take(DL * width, (DL,) + tab.shape[1:]))
-    ln_obs_kf = scatter_drop(ln_obs_kf, rl_reset, -1)
+        new[name] = scatter_flat(tab, rl, flat(take_(
+            DL * width, (DL,) + tab.shape[2:])))
+    ln_obs_kf = scatter_flat(ln_obs_kf, rl_reset, -1)
 
     # 4.-5. observation writes
     def obs_head(width, cap):
-        rows = take(width).long()
-        slots = take(width).long()
-        mask = take(width) > 0.5
-        return torch.where(mask, rows, torch.full_like(rows, cap)), slots
+        rows = take_(width).long()
+        slots = take_(width).long().reshape(-1)
+        mask = take_(width) > 0.5
+        return flat_rows(rows, cap, mask).reshape(-1), slots
 
     orp, osp = obs_head(OP, P)
-    new["pt_obs_kf"] = _scatter_obs(pt_obs_kf, orp, osp, take(OP))
-    new["pt_obs_uv"] = _scatter_obs(mt.pt_obs_uv, orp, osp, take(OP * 2, (OP, 2)))
-    new["pt_obs_f"] = _scatter_obs(mt.pt_obs_f, orp, osp, take(OP * 3, (OP, 3)))
-    new["pt_obs_level"] = _scatter_obs(mt.pt_obs_level, orp, osp, take(OP))
+    new["pt_obs_kf"] = _scatter_obs(pt_obs_kf, orp, osp, flat(take_(OP)))
+    new["pt_obs_uv"] = _scatter_obs(mt.pt_obs_uv, orp, osp,
+                                    flat(take_(OP * 2, (OP, 2))))
+    new["pt_obs_f"] = _scatter_obs(mt.pt_obs_f, orp, osp,
+                                   flat(take_(OP * 3, (OP, 3))))
+    new["pt_obs_level"] = _scatter_obs(mt.pt_obs_level, orp, osp,
+                                       flat(take_(OP)))
     orl, osl = obs_head(OL, L)
-    new["ln_obs_kf"] = _scatter_obs(ln_obs_kf, orl, osl, take(OL))
-    new["ln_obs_sf"] = _scatter_obs(mt.ln_obs_sf, orl, osl, take(OL * 3, (OL, 3)))
-    new["ln_obs_ef"] = _scatter_obs(mt.ln_obs_ef, orl, osl, take(OL * 3, (OL, 3)))
+    new["ln_obs_kf"] = _scatter_obs(ln_obs_kf, orl, osl, flat(take_(OL)))
+    new["ln_obs_sf"] = _scatter_obs(mt.ln_obs_sf, orl, osl,
+                                    flat(take_(OL * 3, (OL, 3))))
+    new["ln_obs_ef"] = _scatter_obs(mt.ln_obs_ef, orl, osl,
+                                    flat(take_(OL * 3, (OL, 3))))
     return mt._replace(**new)
 
 
@@ -444,9 +506,11 @@ def carry_mismatches(carry: MapTables, fresh: MapTables):
 
 
 def pack_bits16(mask: torch.Tensor) -> torch.Tensor:
-    """(N,) bool -> (ceil(N/16),) f32 words of exact 16-bit integers."""
-    pad = (-mask.shape[0]) % 16
-    m = torch.cat([mask, mask.new_zeros(pad)]).reshape(-1, 16).to(torch.int32)
+    """(..., N) bool -> (..., ceil(N/16)) f32 words of exact 16-bit
+    integers."""
+    pad = (-mask.shape[-1]) % 16
+    m = torch.cat([mask, mask.new_zeros(mask.shape[:-1] + (pad,))], -1)
+    m = m.reshape(mask.shape[:-1] + (-1, 16)).to(torch.int32)
     bits = torch.arange(16, dtype=torch.int32, device=mask.device)
     return (m << bits).sum(-1).to(torch.float32)
 
@@ -473,31 +537,39 @@ class NextFrameInputs(NamedTuple):
 
 def _gram_schmidt(R):
     """Row-wise Gram-Schmidt, the host's drift control in _post_fused."""
-    x = R[0] / torch.linalg.norm(R[0]).clamp_min(1e-12)
-    y = R[1] - torch.dot(x, R[1]) * x
-    y = y / torch.linalg.norm(y).clamp_min(1e-12)
-    return torch.stack([x, y, torch.linalg.cross(x, y)])
+    r0, r1 = R[..., 0, :], R[..., 1, :]
+    x = r0 / torch.linalg.norm(r0, dim=-1, keepdim=True).clamp_min(1e-12)
+    y = r1 - (x * r1).sum(-1, keepdim=True) * x
+    y = y / torch.linalg.norm(y, dim=-1, keepdim=True).clamp_min(1e-12)
+    return torch.stack([x, y, torch.linalg.cross(x, y)], -2)
 
 
 def build_next_inputs(res: FusedResult, mt: MapTables, pt_last_optim,
-                      ln_last_optim, frame_id: int,
-                      cur_pyr=None) -> NextFrameInputs:
+                      ln_last_optim, frame_id, cur_pyr=None) -> NextFrameInputs:
     """The next frame's align inputs from this frame's results, on the
-    device. As the host's last-frame blob, except that landmark deletions
-    the host decides from its counters reach these tables one frame later
-    (a just-deleted landmark can take part in one more alignment)."""
+    device, for B sequences (frame_id a number or (B,) tensor). As the
+    host's last-frame blob, except that landmark deletions the host decides
+    from its counters reach these tables one frame later (a just-deleted
+    landmark can take part in one more alignment). Unbatched inputs run as
+    a batch of one."""
+    if res.R_f_w.dim() == 2:
+        return _first(build_next_inputs(
+            _one(res), _one(mt), pt_last_optim[None], ln_last_optim[None],
+            frame_id, None if cur_pyr is None else _one(list(cur_pyr))))
     R = _gram_schmidt(res.R_f_w)
     t = res.t_f_w
-    center = -R.T @ t
+    center = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
     lm, slm = res.pt.lm_idx, res.seg.lm_idx  # rows not selected: any value
 
-    def dist(tab, rows):
-        return torch.linalg.norm(gather_clamped(tab, rows) - center[None], dim=-1)
+    def rows(tab, r):
+        return take(tab, r.clamp(0, tab.shape[1] - 1))
 
-    pt_valid = (res.pt.matched & res.pt_inlier
-                & (gather_clamped(mt.pt_status, lm) > 0))
+    def dist(tab, r):
+        return torch.linalg.norm(rows(tab, r) - center[:, None], dim=-1)
+
+    pt_valid = res.pt.matched & res.pt_inlier & (rows(mt.pt_status, lm) > 0)
     seg_valid = (res.seg.matched & res.seg_inlier
-                 & (gather_clamped(mt.ln_status, slm) > 0))
+                 & (rows(mt.ln_status, slm) > 0))
     pt_depth = dist(mt.pt_pos, lm)
     s_depth, e_depth = dist(mt.ln_spos, slm), dist(mt.ln_epos, slm)
     last = LastFrameTables(
@@ -505,12 +577,10 @@ def build_next_inputs(res: FusedResult, mt: MapTables, pt_last_optim,
         pt_valid=pt_valid, seg_suv=res.seg.s_uv, seg_euv=res.seg.e_uv,
         seg_sf=res.seg_sf_cur, seg_ef=res.seg_ef_cur, seg_sdepth=s_depth,
         seg_edepth=e_depth, seg_valid=seg_valid)
-    fid = float(frame_id)
-    P, L = pt_last_optim.shape[0], ln_last_optim.shape[0]
-    plo = scatter_drop(pt_last_optim, torch.where(
-        res.st_pt_valid, res.st_pt_lm, torch.full_like(res.st_pt_lm, P)), fid)
-    llo = scatter_drop(ln_last_optim, torch.where(
-        res.st_ln_valid, res.st_ln_lm, torch.full_like(res.st_ln_lm, L)), fid)
+    plo = _scatter_rows(pt_last_optim, res.st_pt_lm, res.st_pt_valid,
+                        _per_seq(frame_id, res.st_pt_lm))
+    llo = _scatter_rows(ln_last_optim, res.st_ln_lm, res.st_ln_valid,
+                        _per_seq(frame_id, res.st_ln_lm))
     return NextFrameInputs(last=last, R_last=R, t_last=t, pt_last_optim=plo,
                            ln_last_optim=llo,
                            pyr=None if cur_pyr is None else tuple(cur_pyr))
@@ -518,7 +588,7 @@ def build_next_inputs(res: FusedResult, mt: MapTables, pt_last_optim,
 
 def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                            R_last, t_last, pt_last_optim, ln_last_optim,
-                           mt: MapTables, pt_seeds, ln_seeds, batch_counter: int,
+                           mt: MapTables, pt_seeds, ln_seeds, batch_counter,
                            fx, fy, cx, cy, *, update_pt_seeds: bool,
                            update_ln_seeds: bool = False, max_seed_kfs: int,
                            sigma_conv_factor: float, n_pyr_seed: int,
@@ -526,44 +596,51 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                            pt_width=None, ln_width=None,
                            seed_search_budget: int = 0, n_epi_steps: int = 64,
                            seed_work_budget: int = 0, **kw) -> FullStepResult:
+    """The complete step of B sequences (every input with a leading batch
+    axis; batch_counter and frame_id numbers or (B,) tensors)."""
     from plsvo_torch.ops import depth_filter as df
 
     res = track_frame_core(last_pyr, cur_pyr, kf_flat, last, R_last, t_last,
                            mt, pt_last_optim, ln_last_optim, fx, fy, cx, cy,
                            **kw)
     R_w_kf = mt.kf_R.transpose(-1, -2)
-    t_w_kf = -torch.einsum("kji,kj->ki", mt.kf_R, mt.kf_t)
-    R_w_cur = res.R_f_w.T
-    t_w_cur = -res.R_f_w.T @ res.t_f_w
+    t_w_kf = -torch.einsum("bkji,bkj->bki", mt.kf_R, mt.kf_t)
+    R_w_cur = res.R_f_w.transpose(-1, -2)
+    t_w_cur = -(R_w_cur @ res.t_f_w[..., None])[..., 0]
     pt_conv = ln_conv = None
     if update_pt_seeds or update_ln_seeds:
         # only the live prefix of each table is processed (free rows are
         # allocated lowest-first); the tail is carried as it is
-        Wp = (pt_width or pt_seeds.mu.shape[0]) if update_pt_seeds else 0
-        Wl = (ln_width or ln_seeds.mu_s.shape[0]) if update_ln_seeds else 0
+        Wp = (pt_width or pt_seeds.mu.shape[1]) if update_pt_seeds else 0
+        Wl = (ln_width or ln_seeds.mu_s.shape[1]) if update_ln_seeds else 0
         pres, lres = df.update_seeds_combined(
-            df.PointSeeds(*[a[:Wp] for a in pt_seeds]) if update_pt_seeds else None,
-            df.LineSeeds(*[a[:Wl] for a in ln_seeds]) if update_ln_seeds else None,
+            df.PointSeeds(*[a[:, :Wp] for a in pt_seeds]) if update_pt_seeds else None,
+            df.LineSeeds(*[a[:, :Wl] for a in ln_seeds]) if update_ln_seeds else None,
             R_w_kf, t_w_kf, kf_flat, cur_pyr[:n_pyr_seed], R_w_cur, t_w_cur,
             fx, fy, cx, cy, batch_counter, has_pt=update_pt_seeds,
             has_ln=update_ln_seeds, max_seed_kfs=max_seed_kfs,
             sigma_conv_factor=sigma_conv_factor, max_search=seed_search_budget,
             n_epi_steps=n_epi_steps, pt_work=seed_work_budget)
+
+        def at(a, r, w):
+            return a.gather(1, r.clamp_max(w - 1))
+
         if update_pt_seeds:
-            pt_seeds = df.PointSeeds(*[torch.cat([new, old[Wp:]])
+            pt_seeds = df.PointSeeds(*[torch.cat([new, old[:, Wp:]], 1)
                                        for new, old in zip(pres.seeds, pt_seeds)])
-            rows = nonzero_padded(pres.converged, CONV_BUDGET, pt_seeds.mu.shape[0])
-            pt_conv = (rows, gather_clamped(pres.depth_converged, rows),
-                       pres.converged.sum(), pack_bits16(pt_seeds.alive),
-                       pres.skipped.sum())
+            rows = nonzero_padded(pres.converged, CONV_BUDGET,
+                                  pt_seeds.mu.shape[1])
+            pt_conv = (rows, at(pres.depth_converged, rows, Wp),
+                       pres.converged.sum(-1), pack_bits16(pt_seeds.alive),
+                       pres.skipped.sum(-1))
         if update_ln_seeds:
-            ln_seeds = df.LineSeeds(*[torch.cat([new, old[Wl:]])
+            ln_seeds = df.LineSeeds(*[torch.cat([new, old[:, Wl:]], 1)
                                       for new, old in zip(lres.seeds, ln_seeds)])
             rows = nonzero_padded(lres.converged, CONV_BUDGET,
-                                  ln_seeds.mu_s.shape[0])
-            ln_conv = (rows, gather_clamped(lres.depth_s, rows),
-                       gather_clamped(lres.depth_e, rows), lres.converged.sum(),
-                       pack_bits16(ln_seeds.alive), lres.skipped.sum())
+                                  ln_seeds.mu_s.shape[1])
+            ln_conv = (rows, at(lres.depth_s, rows, Wl),
+                       at(lres.depth_e, rows, Wl), lres.converged.sum(-1),
+                       pack_bits16(ln_seeds.alive), lres.skipped.sum(-1))
     nxt = None
     if emit_next:
         nxt = build_next_inputs(res, mt, pt_last_optim, ln_last_optim,
@@ -573,12 +650,57 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                           mt=apply_struct_to_mt(mt, res))
 
 
+def _tree_map(fn, tree):
+    """fn over every tensor of a tree of tuples, lists and NamedTuples
+    (None and other leaves pass through)."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        vals = [_tree_map(fn, t) for t in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
+    return tree
+
+
+def stack_trees(trees):
+    """One tree whose tensors stack the given same-shaped trees' along a new
+    leading axis."""
+    first = trees[0]
+    if torch.is_tensor(first):
+        return torch.stack(trees)
+    if isinstance(first, (tuple, list)):
+        vals = [stack_trees(list(xs)) for xs in zip(*trees)]
+        return type(first)(*vals) if hasattr(first, "_fields") else type(first)(vals)
+    return first
+
+
+def _one(tree):
+    return _tree_map(lambda a: a[None], tree)
+
+
+def _one_atlas(kf_flat):
+    return kf_flat._replace(flat=kf_flat.flat[None])
+
+
+def _first(tree):
+    return _tree_map(lambda a: a[0], tree)
+
+
 def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
                      mt: MapTables, pt_seeds, ln_seeds, batch_counter: int,
                      fx, fy, cx, cy, *, specs, **kw) -> FullStepResult:
-    """The complete tracked-frame device step from one packed host blob
-    (layout `last_blob_specs`); with emit_next=True (and frame_id) it also
-    returns the next frame's inputs."""
+    """The complete tracked-frame device step of one sequence from one
+    packed host blob (layout `last_blob_specs`): the batched step with a
+    batch of one. With emit_next=True (and frame_id) it also returns the
+    next frame's inputs."""
+    return _first(_step_from_blob(
+        _one(list(last_pyr)), _one(list(cur_pyr)), _one_atlas(kf_flat),
+        blob[None],
+        _one(mt), _one(pt_seeds), _one(ln_seeds), batch_counter, fx, fy, cx,
+        cy, specs=specs, **kw))
+
+
+def _step_from_blob(last_pyr, cur_pyr, kf_flat, blob, mt, pt_seeds, ln_seeds,
+                    batch_counter, fx, fy, cx, cy, *, specs, **kw):
     (pt_uv, pt_f, pt_depth, pt_valid, seg_suv, seg_euv, seg_sf, seg_ef,
      seg_sdepth, seg_edepth, seg_valid, R_last, t_last, pt_last_optim,
      ln_last_optim) = unpack_blob(blob, specs)
@@ -590,6 +712,38 @@ def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
                                   cx, cy, **kw)
 
 
+def track_frame_step_list(last_pyrs, cur_pyr, kf_flat, blobs, mts,
+                          bc_fid: torch.Tensor, pt_seeds, ln_seeds, fx, fy,
+                          cx, cy, *, specs, **kw) -> FullStepResult:
+    """The tracked-frame step of B sequences at once (the JAX package's
+    vmapped `track_frame_step_list`): the per-sequence last pyramids, blobs
+    and map tables are stacked here; cur_pyr is the stacked pyramid of the
+    new images (levels (B, h, w)), kf_flat the stacked keyframe atlas
+    (flat (B, H, K*Wa)), the seed tables are stacked already (they stay
+    stacked across frames), bc_fid (B, 2) holds each sequence's
+    [batch_counter, frame_id]. Every result carries the leading B."""
+    return _step_from_blob(
+        [torch.stack([p[lv] for p in last_pyrs]) for lv in range(len(cur_pyr))],
+        list(cur_pyr), kf_flat, torch.stack(list(blobs)),
+        stack_trees(list(mts)), pt_seeds,
+        ln_seeds, bc_fid[:, 0], fx, fy, cx, cy, specs=specs,
+        frame_id=bc_fid[:, 1], **kw)
+
+
+def _step_tables(cur_img, kf_flat, nxt: NextFrameInputs, mt: MapTables,
+                 pt_seeds, ln_seeds, batch_counter, fx, fy, cx, cy, *,
+                 n_levels: int, frame_id, mt_delta=None,
+                 evict_width: int = MT_DELTA_NE, **kw) -> FullStepResult:
+    if mt_delta is not None:
+        mt = apply_mt_deltas(mt, mt_delta, NE=evict_width)
+    cur_pyr = build_pyramid(cur_img.to(torch.float32), n_levels)
+    return _track_frame_step_impl(
+        nxt.pyr, cur_pyr, kf_flat, nxt.last, nxt.R_last, nxt.t_last,
+        nxt.pt_last_optim, nxt.ln_last_optim, mt, pt_seeds, ln_seeds,
+        batch_counter, fx, fy, cx, cy, emit_next=True, frame_id=frame_id,
+        **kw)
+
+
 def track_frame_step_tables(cur_img, kf_flat, nxt: NextFrameInputs,
                             mt: MapTables, pt_seeds, ln_seeds,
                             batch_counter: int, fx, fy, cx, cy, *,
@@ -599,15 +753,31 @@ def track_frame_step_tables(cur_img, kf_flat, nxt: NextFrameInputs,
     """The pipelined step: the align inputs and the last pyramid come from
     the previous step's NextFrameInputs, the map tables from its carry with
     this frame's host delta blob (width evict_width for evictions) applied,
-    and the pyramid is built here from the raw image (any dtype)."""
-    if mt_delta is not None:
-        mt = apply_mt_deltas(mt, mt_delta, NE=evict_width)
-    cur_pyr = build_pyramid(cur_img.to(torch.float32), n_levels)
-    return _track_frame_step_impl(
-        nxt.pyr, cur_pyr, kf_flat, nxt.last, nxt.R_last, nxt.t_last,
-        nxt.pt_last_optim, nxt.ln_last_optim, mt, pt_seeds, ln_seeds,
-        batch_counter, fx, fy, cx, cy, emit_next=True, frame_id=frame_id,
-        **kw)
+    and the pyramid is built here from the raw image (any dtype). One
+    sequence: the batched step with a batch of one."""
+    return _first(_step_tables(
+        cur_img[None], _one_atlas(kf_flat), _one(nxt), _one(mt), _one(pt_seeds),
+        _one(ln_seeds), batch_counter, fx, fy, cx, cy, n_levels=n_levels,
+        frame_id=frame_id,
+        mt_delta=None if mt_delta is None else mt_delta[None],
+        evict_width=evict_width, **kw))
+
+
+def track_frame_step_tables_list(cur_imgs, kf_flat, bc_fid: torch.Tensor,
+                                 nxt: NextFrameInputs, mt: MapTables,
+                                 mt_deltas, pt_seeds, ln_seeds, fx, fy, cx,
+                                 cy, *, n_levels: int,
+                                 evict_width: int = MT_DELTA_NE,
+                                 **kw) -> FullStepResult:
+    """The pipelined step of B sequences at once (the JAX package's
+    `track_frame_step_tables_list`): the raw images (B, H, W) as one
+    upload, bc_fid (B, 2) [batch_counter, frame_id], the previous batched
+    step's NextFrameInputs and map carry, and the (B, L) delta blobs as one
+    upload; every leaf carries the leading B."""
+    return _step_tables(cur_imgs, kf_flat, nxt, mt, pt_seeds, ln_seeds,
+                        bc_fid[:, 0], fx, fy, cx, cy, n_levels=n_levels,
+                        frame_id=bc_fid[:, 1], mt_delta=mt_deltas,
+                        evict_width=evict_width, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -627,8 +797,9 @@ _FETCH_DROP = ("pt_f_cur", "seg_sf_cur", "seg_ef_cur", "seg_line_cur")
 def fetch_view(res: FusedResult) -> FusedResult:
     """The result without the fields the host recomputes from fetched uvs
     (unprojected bearings and line coefficients); the device copy keeps
-    them for build_next_inputs."""
-    return res._replace(**{k: getattr(res, k).new_zeros(0) for k in _FETCH_DROP})
+    them for build_next_inputs. A batched result keeps its leading axis."""
+    return res._replace(**{k: getattr(res, k).new_zeros(
+        getattr(res, k).shape[:-2] + (0,)) for k in _FETCH_DROP})
 
 
 def _leaves(tree):

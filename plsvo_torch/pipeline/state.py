@@ -377,7 +377,8 @@ class MapState:
         W2 = self.img_shape[1] / 2.0
         H2 = self.img_shape[0] / 2.0
         self.kf_key_lms[slot] = -1
-        sel = frame.pt_valid & (frame.pt_lm >= 0)
+        sel = (frame.pt_valid & (frame.pt_lm >= 0)
+               & ~self._deleted(self.pt_status, frame.pt_lm))
         if not sel.any():
             return
         uv = frame.pt_uv[sel]
@@ -426,7 +427,14 @@ class MapState:
         return min(cands, key=lambda kd: kd[1])[0]
 
     def add_keyframe(self, frame: FrameState) -> int:
-        """Install a frame into a free keyframe slot (eviction by caller)."""
+        """Install a frame into a free keyframe slot (eviction by caller).
+
+        The eviction that makes room may delete landmarks this frame
+        observes (they had no other observation left): the keyframe keeps
+        no link to those, as remove_keyframe clears every other keyframe's
+        links to them. (The JAX package links them, so a keyframe feature
+        can end up on a deleted row, and on an unrelated landmark once the
+        row is reused.)"""
         slot = self.free_kf_slot()
         assert slot is not None, "no free keyframe slot — evict first"
         self.kf_occupied[slot] = True
@@ -439,15 +447,17 @@ class MapState:
         self.kf_pt_uv[slot] = frame.pt_uv
         self.kf_pt_f[slot] = frame.pt_f
         self.kf_pt_level[slot] = frame.pt_level
-        self.kf_pt_lm[slot] = np.where(frame.pt_valid, frame.pt_lm, -1)
+        pt_link = frame.pt_valid & ~self._deleted(self.pt_status, frame.pt_lm)
+        seg_link = frame.seg_valid & ~self._deleted(self.ln_status, frame.seg_lm)
+        self.kf_pt_lm[slot] = np.where(pt_link, frame.pt_lm, -1)
         self.kf_seg_suv[slot] = frame.seg_suv
         self.kf_seg_euv[slot] = frame.seg_euv
         self.kf_seg_sf[slot] = frame.seg_sf
         self.kf_seg_ef[slot] = frame.seg_ef
         self.kf_seg_level[slot] = frame.seg_level
-        self.kf_seg_lm[slot] = np.where(frame.seg_valid, frame.seg_lm, -1)
+        self.kf_seg_lm[slot] = np.where(seg_link, frame.seg_lm, -1)
 
-        sel = np.where(frame.pt_valid & (frame.pt_lm >= 0))[0]
+        sel = np.where(pt_link & (frame.pt_lm >= 0))[0]
         if len(sel):
             lm, first = np.unique(frame.pt_lm[sel], return_index=True)
             sel = sel[first]
@@ -464,7 +474,7 @@ class MapState:
             self.pt_anchor_level[lm] = frame.pt_level[sel]
             self._obs_dirty["pt"].update(lm.tolist())
             self._queue_kf_obs("pt", lm, slots)
-        sel = np.where(frame.seg_valid & (frame.seg_lm >= 0))[0]
+        sel = np.where(seg_link & (frame.seg_lm >= 0))[0]
         if len(sel):
             lm, first = np.unique(frame.seg_lm[sel], return_index=True)
             sel = sel[first]
@@ -484,6 +494,11 @@ class MapState:
             self._queue_kf_obs("ln", lm, slots)
         self._set_key_landmarks(slot, frame)
         return slot
+
+    @staticmethod
+    def _deleted(status, lm):
+        """Features linked to a deleted landmark row."""
+        return (lm >= 0) & (status[np.maximum(lm, 0)] == ST_DELETED)
 
     def _queue_kf_obs(self, kind, rows, slots):
         """Queue a keyframe install's anchor refresh (whole rows) and its

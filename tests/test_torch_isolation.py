@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points run on the card unless told otherwise, and a CUDA tensor never
+"""The port stands alone: it (with chip_smoke.py and bench_torch.py)
+imports neither JAX nor the JAX package, its entry points (BatchedVO
+included) run on the card unless told otherwise, and a CUDA tensor never
 falls back to the plain twins."""
 import re
 import subprocess
@@ -52,6 +53,14 @@ for c in (points, lines, pipelined):
     n.append(r.n_pt_matches)
 # the lines config adds KLT targets along the detected segments
 assert n[1] > n[0] and n[2] == n[1], n
+from plsvo_torch.parallel.multi_vo import BatchedVO
+for mode in ("vmap", "streams"):
+    rs = BatchedVO(cam, pipelined, 2, mode=mode, device="cpu").add_images(
+        [img, img], 0.0)
+    assert [(r.stage, r.quality) for r in rs] == [("first", "good")] * 2, rs
+import importlib.util
+spec = importlib.util.spec_from_file_location("bench_torch", "bench_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "plsvo_tpu"))
 print("BAD", bad)
@@ -67,7 +76,8 @@ def test_port_runs_without_jax_in_a_fresh_process():
 
 def test_no_source_imports_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|plsvo_tpu)\b", re.M)
-    files = sorted((ROOT / "plsvo_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "plsvo_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
     assert len(files) > 20
     offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert offenders == []
@@ -88,6 +98,7 @@ def _helper_call(name):
 
     from plsvo_torch import convert
     from plsvo_torch.ops import depth_filter, homography
+    from plsvo_torch.parallel.multi_vo import BatchedVO
     from plsvo_torch.pipeline.state import MapState
     from plsvo_torch.utils import synthetic
 
@@ -112,13 +123,15 @@ def _helper_call(name):
         "point_seeds_from_numpy": lambda: convert.point_seeds_from_numpy({}),
         "line_seeds_from_numpy": lambda: convert.line_seeds_from_numpy({}),
         "MapState": lambda: MapState(fast_config(), 3, (48, 64)),
+        "BatchedVO": lambda: BatchedVO(cam, fast_config(), 2),
     }[name]
 
 
 @pytest.mark.parametrize("name", [
     "render_aa", "render_batch_aa", "homography_init", "empty_point_seeds",
     "empty_line_seeds", "frame_state_from_numpy", "map_state_from_numpy",
-    "point_seeds_from_numpy", "line_seeds_from_numpy", "MapState"])
+    "point_seeds_from_numpy", "line_seeds_from_numpy", "MapState",
+    "BatchedVO"])
 def test_helpers_default_to_cuda(monkeypatch, name):
     """Every public helper that creates tensors runs on the card unless the
     caller names a device: with no card and no device it raises."""
@@ -187,6 +200,22 @@ def test_unported_config_raises(make_cam, match):
     """Camera models other than the pinhole are not ported."""
     with pytest.raises(NotImplementedError, match=match):
         frame_handler.FrameHandlerMono(make_cam(), fast_config(), device="cpu")
+
+
+@pytest.mark.parametrize("kw,match", [
+    pytest.param(dict(mesh=object()), "A19", id="mesh"),
+    pytest.param(dict(cam=_AtanCamera()), "camera model", id="non_pinhole"),
+    pytest.param(dict(mode="sharded"), "mode", id="mode")])
+def test_batched_vo_unported_options_raise(kw, match):
+    """BatchedVO over a device mesh waits for the multi-device work; other
+    camera models and modes raise too."""
+    from plsvo_torch.parallel.multi_vo import BatchedVO
+
+    args = dict(cam=PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0),
+                cfg=fast_config(), n_sequences=2, device="cpu")
+    args.update(kw)
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        BatchedVO(**args)
 
 
 @pytest.mark.parametrize("make", [fast_config, default_config],

@@ -55,3 +55,23 @@ def test_transform_between_pipelined_frames_resyncs_the_carry():
                for x in delivered[AT:])
     assert not tfused.carry_mismatches(vo.sync_carry(),
                                        tfused.map_tables_upload(vo.map))
+
+
+def test_failure_in_the_last_drain_leaves_no_dropped_step_in_the_carry():
+    """A frame that fails in flush()'s drain drops its successors in
+    flight, whose steps already wrote their structure updates into the
+    carry; the next step would restart from a full upload, and so does
+    sync_carry()."""
+    imgs = golden_frames(N_FRAMES)
+    vo = port_handler(pipelined_config(4))
+    for i in range(N_FRAMES):
+        vo.add_image(imgs[i], i / 30.0)
+    assert vo.stage == tfh.STAGE_DEFAULT and len(vo._pipe_q) > 2
+    # every frame bookkept from here on fails its quality gate
+    vo._tracking_quality = lambda n_pt, n_seg: tfh.QUALITY_INSUFFICIENT
+    out = vo.flush()
+    assert vo.stage == tfh.STAGE_RELOCALIZING
+    assert out[-1].quality == tfh.QUALITY_INSUFFICIENT
+    assert out[-1].frame_id < N_FRAMES - 2  # successors were dropped
+    assert not tfused.carry_mismatches(vo.sync_carry(),
+                                       tfused.map_tables_upload(vo.map))
