@@ -31,6 +31,27 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                at keyframes and at least one line landmark made from a
                converged seed; in the lines run a median segment match
                count > 0 after the first line landmark
+  5b. cli    — the user's entry point, plsvo_torch.run_pipeline, on image
+               folders written by the port (phase_cli): (a) a 40-frame
+               752x480 pinhole dataset (PNGs, groundtruth.txt,
+               dataset_params.yaml) through main(["--config", "default",
+               "--local-ba", "--trajout", "--metrics", "--frames-out"]) in
+               this process, with the launch counts set to 0 before and
+               read after: 40 TUM rows, DEFAULT reached and kept, ATE < 1%
+               of the path against groundtruth.txt read back, K1 and K2
+               each launched, no relocalization; (b) a 24-frame ATAN
+               dataset (w = 0.93) undistorted on ingest: maps built,
+               DEFAULT reached, ATE < CLI_ATAN_ATE; (c) a handler saved
+               after 14 frames and loaded on the card continues to frame 20
+               no further from the uninterrupted one than two
+               uninterrupted runs part (+ CLI_RESUME_SLACK); (d) `python3 -m
+               plsvo_torch.run_pipeline --dataset (a) --n-frames 14` as a
+               subprocess: rc 0 and the ATE line; (e) LBD of bench frames 0
+               and 1, card vs CPU: float descriptors within LBD_FLOAT_ATOL,
+               bits equal away from ties, match_binary equal. The images,
+               PNGs and checkpoint go to a temporary directory under
+               chiprun_out/, removed at the end; the CLI's own output goes
+               to chiprun_out/cli_run.log
   6. pipelined — default_config() with pipelined=True, pipeline_depth=12
                (bench.py's configuration) on the lines run's 40 frames and
                then PIPE_DEPTH more under torch.profiler, flush() at the
@@ -105,8 +126,8 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
   11. report — one JSON line per the kernel report format, the card line,
                and as the last line {"ok": true, "device": {...}}
 
-The soaks (6d) and the streams run (6c) run right after phase 5, before
-any torch.profiler session: a profiler session slows the host work after
+The cli phase (5b), the soaks (6d) and the streams run (6c) run right
+after phase 5, before any torch.profiler session: a profiler session slows the host work after
 it by ~30% on the H100 machine, so every timing after phase 6's profiled
 window (6b's included) carries that slowdown.
 
@@ -123,6 +144,10 @@ import sys
 import time
 
 import numpy as np
+
+# the reference's bootstrap RANSAC draws (threefry in numpy), importable
+# from here as before
+from plsvo_torch.utils.threefry import reference_ransac_draws  # noqa: F401
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s, FP32
 # (non-tensor-core) 67 TFLOP/s. Bounds are computed against these.
@@ -221,19 +246,27 @@ def _device_records(calls, kernel_name, pad=32):
 
 def kernel_device_ms(fn, kernel_name, n=50, sessions=5):
     """Median device duration of the kernel named kernel_name over n calls
-    of fn, as torch.profiler records it on the card; a failure when the
-    profiler records fewer than half of them in each of `sessions`
-    sessions."""
+    of fn, as torch.profiler records it on the card. The profiler can lose
+    device records of a session: the records of up to `sessions` sessions,
+    every one of them a launch of the same call, are pooled until they hold
+    n // 2; a failure when all the sessions together hold fewer."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    pooled, kept = [], []
     for _ in range(sessions):
         d = _device_records([fn] * n, kernel_name)
-        if len(d) >= n // 2:
-            return float(np.median(d)) / 1e3
-    fail(f"the profiler saw {len(d)} of {n} launches of {kernel_name} "
-         f"in each of {sessions} sessions")
+        pooled += d
+        kept.append(len(d))
+        if len(pooled) >= n // 2:
+            if kept != [n]:
+                print(f"timing: the profiler kept {kept} of {n} records of "
+                      f"{kernel_name} per session; the median is over the "
+                      f"{len(pooled)} kept", flush=True)
+            return float(np.median(pooled)) / 1e3
+    fail(f"the profiler saw {kept} of {n} launches of {kernel_name} "
+         f"in {sessions} sessions")
 
 
 def calls_device_ms(calls, kernel_name, reps=10):
@@ -254,6 +287,9 @@ def calls_device_ms(calls, kernel_name, reps=10):
         if len(d) == len(runs):
             us = np.asarray(d).reshape(len(calls), reps)
             return [float(x) / 1e3 for x in np.median(us, axis=1)]
+    print(f"timing: the profiler kept {len(d)} of {len(runs)} records of "
+          f"{kernel_name} in the last of 3 sessions; each call is timed in "
+          "sessions of its own", flush=True)
     return [kernel_device_ms(f, kernel_name, n=2 * reps) for f in calls]
 
 
@@ -867,6 +903,241 @@ def phase_ba(run, device):
                 K=K, L=L, O=O, errs=errs)
 
 
+CLI_FRAMES = 40
+CLI_ATAN_FRAMES = 24
+CLI_ATAN_STEP = 0.025  # m per frame, tests/test_pipeline.py's ATAN flow
+CLI_ATAN_ATE = 0.02  # m, that test's bound
+CLI_RESUME_AT, CLI_RESUME_TO = 14, 20
+CLI_RESUME_SLACK = 1e-5
+LBD_FLOAT_ATOL = 1e-4
+LBD_BIT_TIE = 1e-5
+
+
+def phase_cli(device, bench_imgs):
+    """The user's entry point, plsvo_torch.run_pipeline, on 752x480 image
+    folders written by the port: (a) a pinhole dataset through main() in
+    this process, with the launch counts set to 0 before and read after;
+    (b) an ATAN dataset (undistort on ingest); (c) checkpoint and resume on
+    the card; (d) the user's command in a subprocess; (e) LBD on the card
+    against the CPU on two frames of the bench sequence."""
+    import contextlib
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from plsvo_torch import run_pipeline
+    from plsvo_torch.camera import ATANCamera
+    from plsvo_torch.config import Config
+    from plsvo_torch.native import loader
+    from plsvo_torch.ops import fast_score as fs
+    from plsvo_torch.ops import line_descriptor as lbd
+    from plsvo_torch.ops import lines
+    from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
+                                                    FrameHandlerMono)
+    from plsvo_torch.utils import checkpoint, dataset, imageio, synthetic
+    from plsvo_torch.utils import trajectory
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cli_", dir=OUT_DIR)
+    log_path = os.path.join(OUT_DIR, "cli_run.log")
+    width, height = 752, 480
+    try:
+        # ---- (a) the pinhole dataset through main() ----
+        ds_dir = os.path.join(root, "pinhole")
+        t0 = time.perf_counter()
+        dataset.write_synthetic_dataset(ds_dir, n_frames=CLI_FRAMES,
+                                        width=width, height=height,
+                                        device=device)
+        t_write = time.perf_counter() - t0
+        traj_path = os.path.join(root, "traj.txt")
+        metrics_path = os.path.join(root, "metrics.jsonl")
+        argv = ["--dataset", ds_dir, "--n-frames", str(CLI_FRAMES), "--config",
+                "default", "--local-ba", "--trajout", traj_path, "--metrics",
+                metrics_path, "--frames-out", os.path.join(root, "frames")]
+        fs.launches = 0
+        ma.launches = 0
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            vo, data, _ = run_pipeline.main(argv)
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+        decoder = dataset.last_decoder
+        native = loader.get_lib() is not None
+        est = trajectory.read_tum(traj_path)
+        if len(est) != CLI_FRAMES:
+            fail(f"cli: {len(est)} TUM rows, expected {CLI_FRAMES}")
+        stages = [r.stage for r in vo.results]
+        if STAGE_DEFAULT not in stages:
+            fail("cli: never reached STAGE_DEFAULT")
+        fd = stages.index(STAGE_DEFAULT)
+        if any(st != STAGE_DEFAULT for st in stages[fd:]):
+            fail(f"cli: tracking left STAGE_DEFAULT after frame {fd}: {stages[fd:]}")
+        if vo.n_relocalizations:
+            fail(f"cli: {vo.n_relocalizations} relocalizations")
+        gt = trajectory.read_tum(os.path.join(ds_dir, "groundtruth.txt"))
+        est_pos = np.stack([p for _, p, _ in est])[fd:]
+        gt_pos = np.stack([p for _, p, _ in gt])[fd:CLI_FRAMES]
+        ate = trajectory.ate_rmse(est_pos, gt_pos)
+        path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=-1).sum())
+        if not ate < 0.01 * path:
+            fail(f"cli: ATE {ate} >= 1% of the path length {path}")
+        if launches["fast_score"] < 1 or launches["mixed_align"] < 1:
+            fail(f"cli: the run did not reach both kernels: {launches}")
+        n_png = len(os.listdir(os.path.join(root, "frames")))
+        rows = [_json.loads(line) for line in open(metrics_path)]
+        ms = [r["proc_ms"] for r in rows[fd + 5:]]
+        print(f"cli (a): wrote {CLI_FRAMES} frames {width}x{height} in "
+              f"{t_write:.1f} s; main() {len(est)} TUM rows, DEFAULT from "
+              f"frame {fd}, Sim3 ATE {ate:.6f} m over a {path:.3f} m path "
+              f"({100 * ate / path:.3f}%), no relocalization; launches "
+              f"{launches}; per-frame ms (DEFAULT frames after the first 5, "
+              f"n={len(ms)}) median {np.median(ms):.2f} p90 "
+              f"{np.percentile(ms, 90):.2f}; {n_png} annotated PNGs; images "
+              f"decoded by {decoder} (native loader built: {native})",
+              flush=True)
+
+        # ---- (b) an ATAN dataset: undistort on ingest ----
+        atan_dir = os.path.join(root, "atan")
+        os.makedirs(os.path.join(atan_dir, "images"))
+        f = 460.0  # write_synthetic_dataset's focal length at 752x480
+        cam = ATANCamera.create(width, height, f / width, f / height, 0.5, 0.5,
+                                w=0.93)
+        scene = synthetic.make_scene(np.random.default_rng(0), size=2048,
+                                     texel_size=0.003)
+        entries = []
+        for i in range(CLI_ATAN_FRAMES):
+            R = np.eye(3, dtype=np.float32)
+            t = np.asarray([CLI_ATAN_STEP * i, 0.0, -2.0], np.float32)
+            img = synthetic.render_aa(scene, cam, R, t, device=device)
+            imageio.write_png(os.path.join(atan_dir, "images", f"{i:06d}.png"),
+                              img.cpu().numpy().astype(np.uint8))
+            entries.append((i / 30.0, R.T.copy(), -R.T @ t))
+        trajectory.write_tum(os.path.join(atan_dir, "groundtruth.txt"), entries)
+        with open(os.path.join(atan_dir, "dataset_params.yaml"), "w") as fh:
+            fh.write(f"cam0:\n  cam_model: ATAN\n  cam_width: {width}\n"
+                     f"  cam_height: {height}\n  cam_fx: {f / width}\n"
+                     f"  cam_fy: {f / height}\n  cam_cx: 0.5\n  cam_cy: 0.5\n"
+                     "  cam_d0: 0.93\nimages_subfolder: images/\n")
+        with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+            avo, adata, _ = run_pipeline.main(
+                ["--dataset", atan_dir, "--n-frames", str(CLI_ATAN_FRAMES),
+                 "--trajout", os.path.join(root, "atan_traj.txt")])
+        if adata._maps is None or not isinstance(adata.camera, ATANCamera):
+            fail("cli (b): the ATAN dataset built no undistortion maps")
+        astages = [r.stage for r in avo.results]
+        if STAGE_DEFAULT not in astages:
+            fail(f"cli (b): never reached STAGE_DEFAULT: {astages}")
+        afd = astages.index(STAGE_DEFAULT)
+        aest = np.stack([-r.R_f_w.T @ r.t_f_w for r in avo.results[afd:]])
+        agt = np.stack([-R.T @ t for _, R, t in entries])[afd:]
+        aate = trajectory.ate_rmse(aest.astype(np.float64), agt.astype(np.float64))
+        print(f"cli (b): ATAN (w=0.93) dataset of {CLI_ATAN_FRAMES} frames, "
+              f"undistortion maps built, DEFAULT from frame {afd}, Sim3 ATE "
+              f"{aate:.6f} m (bound {CLI_ATAN_ATE})", flush=True)
+        if not aate < CLI_ATAN_ATE:
+            fail(f"cli (b): ATAN ATE {aate} >= {CLI_ATAN_ATE}")
+
+        # ---- (c) checkpoint and resume on the card ----
+        cfg = Config()
+        imgs = [im for _, im in dataset.ImageFolderDataset(
+            os.path.join(ds_dir, "images"), data.camera, limit=CLI_RESUME_TO)]
+        handlers = []
+        for _ in range(2):
+            h = FrameHandlerMono(data.ideal_camera(), cfg, device=device)
+            for i, im in enumerate(imgs[:CLI_RESUME_AT]):
+                h.add_image(im, i / 30.0)
+            handlers.append(h)
+        ckpt = os.path.join(root, "ckpt.npz")
+        checkpoint.save_state(handlers[0], ckpt)
+        resumed = checkpoint.load_state(ckpt, device="cuda")
+        if resumed.device.type != "cuda" or resumed.stage != handlers[0].stage:
+            fail(f"cli (c): loaded on {resumed.device} in stage {resumed.stage}")
+        poses = {"a": [], "b": [], "resumed": []}
+        for i in range(CLI_RESUME_AT, CLI_RESUME_TO):
+            for key, h in (("a", handlers[0]), ("b", handlers[1]),
+                           ("resumed", resumed)):
+                r = h.add_image(imgs[i], i / 30.0)
+                if r.stage != STAGE_DEFAULT:
+                    fail(f"cli (c): handler {key} left DEFAULT at frame {i}")
+                poses[key].append((r.R_f_w, r.t_f_w))
+
+        def pose_diff(x, y):
+            return tuple(max(float(np.abs(p[k] - q[k]).max())
+                             for p, q in zip(poses[x], poses[y])) for k in (0, 1))
+
+        d_res, d_two = pose_diff("resumed", "a"), pose_diff("b", "a")
+        print(f"cli (c): saved after {CLI_RESUME_AT} frames, loaded on "
+              f"{resumed.device}, continued to frame {CLI_RESUME_TO}: resumed "
+              f"vs uninterrupted max |dR| {d_res[0]:.3e}, |dt| {d_res[1]:.3e}; "
+              f"two uninterrupted runs {d_two[0]:.3e}, {d_two[1]:.3e}", flush=True)
+        if not all(r <= u + CLI_RESUME_SLACK for r, u in zip(d_res, d_two)):
+            fail(f"cli (c): the resumed handler parts from the uninterrupted "
+                 f"one by {d_res}, more than two uninterrupted runs part "
+                 f"({d_two}) + {CLI_RESUME_SLACK}")
+
+        # ---- (d) the user's command ----
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+            __file__)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "plsvo_torch.run_pipeline", "--dataset",
+             ds_dir, "--n-frames", str(CLI_RESUME_AT)], cwd=root,
+            env=env, capture_output=True, text=True, timeout=600)
+        ate_line = [ln for ln in proc.stdout.splitlines() if "ATE RMSE" in ln]
+        print(f"cli (d): python3 -m plsvo_torch.run_pipeline --dataset ... "
+              f"--n-frames {CLI_RESUME_AT}: rc {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; {ate_line}", flush=True)
+        if proc.returncode != 0 or not ate_line:
+            fail(f"cli (d): rc {proc.returncode}\n{proc.stdout[-2000:]}\n"
+                 f"{proc.stderr[-2000:]}")
+
+        # ---- (e) LBD on the card against the CPU ----
+        descs = []
+        for img in bench_imgs[:2]:
+            det = lines.detect_segments_tiled(img, n_peaks=64, run_gap_px=3.0,
+                                              dist_tol=1.2)
+            tab, _ = lines.dedup_segments_grid(
+                det, width=img.shape[1], height=img.shape[0], cell_size=25,
+                max_segs=cfg.caps.max_segs, min_length=25.0)
+            d_k = lbd.compute_lbd(img, tab.sp, tab.ep, tab.valid)
+            d_p = lbd.compute_lbd(img.cpu(), tab.sp.cpu(), tab.ep.cpu(),
+                                  tab.valid.cpu())
+            torch.cuda.synchronize()
+            fk, fp = d_k.float_desc.cpu(), d_p.float_desc
+            err = float((fk - fp).abs().max())
+            ia, ib = lbd.binarization_pairs(fp.shape[-1])
+            tie = (fp[:, ia] - fp[:, ib]).abs() <= LBD_BIT_TIE
+            flips = (d_k.binary.cpu() != d_p.binary) & ~tie
+            if not torch.equal(d_k.valid.cpu(), d_p.valid):
+                fail("cli (e): LBD valid masks differ card vs CPU")
+            if err > LBD_FLOAT_ATOL or flips.any():
+                fail(f"cli (e): LBD card vs CPU: float err {err} (atol "
+                     f"{LBD_FLOAT_ATOL}), {int(flips.sum())} bits flipped "
+                     "away from ties")
+            descs.append((d_p, err, int(d_p.valid.sum())))
+        (da, ea, na), (db, eb, nb) = descs
+        m_p = lbd.match_binary(da, db)
+        m_k = lbd.match_binary(*(lbd.LineDescriptors(*(x.to(device) for x in d))
+                                 for d in (da, db)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(m_k, m_p)):
+            fail("cli (e): match_binary of the CPU's descriptors differs on "
+                 "the card")
+        print(f"cli (e): LBD of bench frames 0 and 1 ({na} and {nb} valid "
+              f"segments): float descriptors card vs CPU max abs err "
+              f"{max(ea, eb):.3e}, bits equal away from ties, "
+              f"{int(m_p.ok.sum())} matches equal on both devices", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, decoder=decoder, native=native, ate=ate,
+                path=path, ms_median=float(np.median(ms)),
+                ms_p90=float(np.percentile(ms, 90)), atan_ate=aate,
+                resume=d_res, uninterrupted=d_two,
+                seconds=time.perf_counter() - t_phase)
+
+
 def phase_lines(img, device):
     """The keyframe line detector on the card against the same code on the
     CPU."""
@@ -1163,46 +1434,6 @@ SOLO_TOL_M = 2e-3  # batched against solo per-frame camera centres
 SOAK_FRAMES = 310
 SOAK_BLACKOUT = range(150, 153)
 SOAK_TAIL_ATE = 0.004  # tests/test_soak.py's bound (m)
-
-
-def _threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash (20 rounds) of counter pairs (x1, x2) under
-    the key (k1, k2), in uint32 numpy arithmetic."""
-    k1, k2 = np.uint32(k1), np.uint32(k2)
-    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
-    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
-    x = [x1 + ks[0], x2 + ks[1]]
-    for i in range(5):
-        for r in rot[i % 2]:
-            x[0] = x[0] + x[1]
-            x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
-            x[1] = x[1] ^ x[0]
-        x[0] = x[0] + ks[(i + 1) % 3]
-        x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x
-
-
-def reference_ransac_draws(n_valid, n_hyp, seed=0):
-    """The JAX package's bootstrap RANSAC draws, in numpy:
-    `jax.random.randint(PRNGKey(seed), (n_hyp, 4), 0, n_valid)` with the
-    partitionable Threefry generator (key split in two, 32 bits of each
-    half per draw, reduced modulo n_valid as randint reduces them). A
-    `ransac_draws` callable for FrameHandlerMono, so that a port run can
-    start from the reference's bootstrap; tests/test_torch_reference_draws.py
-    holds it against jax.random.randint."""
-    with np.errstate(over="ignore"):
-        zero2 = np.zeros(2, np.uint32)
-        k_hi, k_lo = _threefry2x32(0, seed, zero2, np.arange(2, dtype=np.uint32))
-        n = n_hyp * 4
-        cnt = np.arange(n, dtype=np.uint32)
-        zero = np.zeros(n, np.uint32)
-        hi, lo = (np.bitwise_xor(*_threefry2x32(k_hi[j], k_lo[j], zero, cnt))
-                  for j in (0, 1))
-        span = np.uint32(max(n_valid, 1))
-        mult = np.uint32(65536) % span
-        mult = (mult * mult) % span
-        off = ((hi % span) * mult + lo % span) % span
-    return off.astype(np.int64).reshape(n_hyp, 4)
 
 
 def uint8_frames(imgs):
@@ -1855,6 +2086,7 @@ def main():
     sl = phase_run("lines", cam, imgs, gt, device, n_main)
     sp = phase_run("points", cam, imgs_p, gt_p, device, n_pts)
     so = phase_run("lineonly", cam, imgs_l, gt_l, device, n_lo)
+    scli = phase_cli(device, imgs[:2])
     # no profiler session before these: one slows the host work after it
     soaks = [phase_soak(device, PIPE_DEPTH, False,
                         ransac_draws=reference_ransac_draws),
@@ -1927,11 +2159,14 @@ def main():
             dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
                                    for a, k, _ in runs], "mixed_align_kernel")
             b_ms, b_by = k2_bound_ms(a, k2_active_row_iters(a, k))
+            p_ms = cuda_time_ms(lambda: ma.mixed_align_plain(*a, **k), reps=3,
+                                inner=2)
             k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
             print(f"timing: K2 {run} run, {where} N={n}: {len(runs)} launches "
                   f"(capture pass); the one with the most valid rows "
                   f"({int(a[12].sum())}): device {dev[hard]:.4f} ms, kernel "
-                  f"{cuda_time_ms(f2):.4f} ms per call, bound {b_ms:.6f} ms "
+                  f"{cuda_time_ms(f2):.4f} ms per call, plain {p_ms:.4f} ms "
+                  f"per call, bound {b_ms:.6f} ms "
                   f"({b_by}; {100 * b_ms / dev[hard]:.1f}% of its device "
                   f"time); device over the launches: median "
                   f"{k2_run[(run, where, n)][0]:.4f} ms, max "
@@ -1978,9 +2213,13 @@ def main():
             continue
         dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
                                for a, k, _ in runs[-6:]], "mixed_align_kernel")
+        a, k, _ = runs[-1]
+        p_ms = cuda_time_ms(lambda: ma.mixed_align_plain(*a, **k), reps=3,
+                            inner=1)
         print(f"timing: K2 batched run, {where} N={n}: {cnt} launches; device "
               f"over the last {len(dev)}: median {np.median(dev):.4f} ms, "
-              f"max {max(dev):.4f} ms", flush=True)
+              f"max {max(dev):.4f} ms; plain {p_ms:.4f} ms per call (the "
+              f"last launch's inputs)", flush=True)
 
     nf = sl["n_frames"]
     k2_uv = max(e[2] for e in k2.values())
@@ -2010,6 +2249,7 @@ def main():
          "launches_points_only": sp["launches"]["fast_score"],
          "launches_line_only": so["launches"]["fast_score"],
          "launches_pipelined": spp["launches"]["fast_score"],
+         "launches_cli": scli["launches"]["fast_score"],
          "max_abs_err": k1_abs, "max_abs_err_kind": "abs_score",
          "max_err": k1_rel, "max_err_kind": "rel_score",
          "ms": k1_ms, "kernel_ms": k1_dev, "plain_ms": k1_plain,
@@ -2029,6 +2269,7 @@ def main():
          "launches_points_only": sp["launches"]["mixed_align"],
          "launches_line_only": so["launches"]["mixed_align"],
          "launches_pipelined": spp["launches"]["mixed_align"],
+         "launches_cli": scli["launches"]["mixed_align"],
          "max_abs_err": k2_uv, "max_abs_err_kind": "abs_uv_px",
          "max_err": k2_md, "max_err_kind": "abs_mean_diff",
          "ms": k2_ms, "kernel_ms": k2_dev, "plain_ms": k2_plain,
@@ -2063,7 +2304,12 @@ def main():
           f"{sb8['idle']}%; soaks " + ", ".join(
               f"depth {k['depth']}{' with blackout' if k['blackout'] else ''}: "
               f"{k['evictions']} keyframe evictions, tail ATE {k['ate']}"
-              for k in soaks), flush=True)
+              for k in soaks) + f"; cli run (python -m plsvo_torch.run_pipeline "
+          f"--local-ba, {CLI_FRAMES} frames) ATE {scli['ate']:.6f} m "
+          f"({100 * scli['ate'] / scli['path']:.3f}% of the path), per-frame ms "
+          f"median {scli['ms_median']:.2f} p90 {scli['ms_p90']:.2f}, decoder "
+          f"{scli['decoder']}, ATAN ATE {scli['atan_ate']:.6f} m, phase "
+          f"{scli['seconds']:.1f} s", flush=True)
     print(json.dumps(report), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

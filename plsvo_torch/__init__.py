@@ -11,12 +11,16 @@ A port of `plsvo_tpu` (the JAX reference, which it never imports):
   pipeline/                                — state tables + the frame step
                                              + the FrameHandlerMono stage
                                              machine (sync path)
-  utils/                                   — synthetic scenes, trajectories,
+  utils/                                   — synthetic scenes, trajectories
+                                             (TUM IO), datasets, image
+                                             codec, checkpoints, viz,
                                              profiling
+  native/                                  — the image loader (C++, g++)
   csrc/                                    — CUDA sources, built by _build.py
+  run_pipeline.py                          — the command-line entry point
 
-Entry point: `pipeline.frame_handler.FrameHandlerMono(cam, cfg, device)`;
-device=None means "cuda".
+Entry points: `pipeline.frame_handler.FrameHandlerMono(cam, cfg, device)`
+and `python -m plsvo_torch.run_pipeline`; device=None means "cuda".
 """
 
 import torch

@@ -1,8 +1,12 @@
-"""Pinhole camera with batched project/unproject.
+"""Camera models with batched project/unproject.
 
-Port of `plsvo_tpu/camera.py::PinholeCamera`. Intrinsics are Python floats
-(the device code folds them in as scalars); width/height are ints. All
-methods broadcast over leading batch dims. The ATAN model is not ported.
+Port of `plsvo_tpu/camera.py`: the pinhole with radial-tangential
+distortion and the ATAN (FOV) model. Intrinsics are Python floats rounded
+through f32 (the device code folds them in as scalars); width/height are
+ints. All methods broadcast over leading batch dims and compute on the
+device of the tensors they are given. The pipeline tracks on a pinhole
+camera; a distorted camera's images are undistorted once on ingest
+(`utils.dataset`) and tracked with `cam.ideal()`.
 """
 from __future__ import annotations
 
@@ -32,10 +36,13 @@ class PinholeCamera:
         d = tuple((d + [0.0] * 5)[:5])
         # round through f32 so the arithmetic matches a camera whose
         # intrinsics are f32 arrays
-        f32 = lambda x: float(np.float32(x))  # noqa: E731
-        return cls(fx=f32(fx), fy=f32(fy), cx=f32(cx), cy=f32(cy),
-                   dist=tuple(f32(x) for x in d),
+        return cls(fx=_f32(fx), fy=_f32(fy), cx=_f32(cx), cy=_f32(cy),
+                   dist=tuple(_f32(x) for x in d),
                    width=int(width), height=int(height))
+
+    @property
+    def has_distortion(self) -> bool:
+        return any(abs(d) > 1e-12 for d in self.dist)
 
     def focal(self):
         return self.fx
@@ -74,6 +81,100 @@ class PinholeCamera:
         f = torch.cat([uv_n, torch.ones_like(uv_n[..., :1])], -1)
         return f / torch.linalg.norm(f, dim=-1, keepdim=True)
 
+    def is_in_frame(self, uv: torch.Tensor, border: float = 0.0,
+                    level: int = 0) -> torch.Tensor:
+        """vk::AbstractCamera::isInFrame analogue, at a pyramid level."""
+        return _in_frame(uv, self.width, self.height, border, level)
+
     def ideal(self) -> "PinholeCamera":
+        """The distortion-free copy the VO tracks with."""
         return dataclasses.replace(self, dist=(0.0,) * 5)
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _in_frame(uv, width, height, border, level):
+    scale = 1.0 / (1 << level)
+    return ((uv[..., 0] >= border) & (uv[..., 1] >= border)
+            & (uv[..., 0] < width * scale - border)
+            & (uv[..., 1] < height * scale - border))
+
+
+@dataclass(frozen=True)
+class ATANCamera:
+    """FOV / ATAN camera (Devernay-Faugeras), vk::ATANCamera analogue.
+    fx, fy, cx, cy are in pixels; `create` takes them normalized, as the
+    reference's dataset YAML gives them."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    w: float  # FOV distortion parameter
+    width: int = 752
+    height: int = 480
+
+    @classmethod
+    def create(cls, width, height, fx, fy, cx, cy, w):
+        return cls(fx=_f32(fx * width), fy=_f32(fy * height),
+                   cx=_f32(cx * width - 0.5), cy=_f32(cy * height - 0.5),
+                   w=_f32(w), width=int(width), height=int(height))
+
+    @property
+    def has_distortion(self) -> bool:
+        return abs(self.w) > 1e-8
+
+    def focal(self):
+        return self.fx
+
+    @property
+    def _tan_half(self) -> float:
+        # tan(w / 2) in f32, as the JAX package evaluates it
+        return float(np.tan(np.float32(self.w) * np.float32(0.5)))
+
+    def _rd_factor(self, r: torch.Tensor) -> torch.Tensor:
+        """rd / r for the FOV model: rd = atan(2 r tan(w/2)) / w."""
+        th = self._tan_half
+        safe_r = torch.where(r < 1e-8, torch.full_like(r, 1e-8), r)
+        factor = torch.atan(2.0 * safe_r * th) / (self.w * safe_r)
+        return torch.where(r < 1e-8, torch.full_like(r, 2.0 * th / self.w),
+                           factor)
+
+    def distort(self, uv_n: torch.Tensor) -> torch.Tensor:
+        """Unit-plane ideal -> distorted normalized coords."""
+        r = torch.linalg.norm(uv_n, dim=-1)
+        return uv_n * self._rd_factor(r)[..., None]
+
+    def project(self, xyz: torch.Tensor, distort: bool = True) -> torch.Tensor:
+        z = xyz[..., 2]
+        zs = torch.where(z.abs() < 1e-10, torch.full_like(z, 1e-10), z)
+        uv_n = xyz[..., :2] / zs[..., None]
+        if distort:
+            uv_n = self.distort(uv_n)
+        return torch.stack([self.fx * uv_n[..., 0] + self.cx,
+                            self.fy * uv_n[..., 1] + self.cy], -1)
+
+    def unproject(self, uv: torch.Tensor, undistort: bool = True) -> torch.Tensor:
+        uv_n = torch.stack([(uv[..., 0] - self.cx) / self.fx,
+                            (uv[..., 1] - self.cy) / self.fy], -1)
+        if undistort:
+            rd = torch.linalg.norm(uv_n, dim=-1)
+            safe_rd = torch.where(rd < 1e-8, torch.full_like(rd, 1e-8), rd)
+            r = torch.tan(safe_rd * self.w) / (2.0 * self._tan_half)
+            factor = torch.where(rd < 1e-8, torch.ones_like(rd), r / safe_rd)
+            uv_n = uv_n * factor[..., None]
+        f = torch.cat([uv_n, torch.ones_like(uv_n[..., :1])], -1)
+        return f / torch.linalg.norm(f, dim=-1, keepdim=True)
+
+    def is_in_frame(self, uv: torch.Tensor, border: float = 0.0,
+                    level: int = 0) -> torch.Tensor:
+        return _in_frame(uv, self.width, self.height, border, level)
+
+    def ideal(self) -> PinholeCamera:
+        """The undistorted pinhole the VO runs on after undistort-once: the
+        same fx, fy, cx, cy."""
+        return PinholeCamera.create(self.width, self.height, self.fx, self.fy,
+                                    self.cx, self.cy)
 

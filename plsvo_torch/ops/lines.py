@@ -271,23 +271,19 @@ def detect_segments_tiled(img: torch.Tensor, *, n_peaks: int = 64,
                           for a, b in zip(g, det_t)])
 
 
-def dedup_segments_grid_np(segs, *, width, height, cell_size, max_segs,
-                           min_length, occupied=None) -> SegmentTable:
-    """Length-sorted greedy grid dedup of a fetched candidate table, on the
-    host in numpy: accept a segment only if none of its start, mid and end
-    cells is occupied, then mark its start and end cells. Returns a
-    SegmentTable of numpy arrays, capacity max_segs."""
+def _grid_walk(segs, *, width, height, cell_size, min_length, occupied,
+               limit):
+    """The length-sorted greedy occupancy walk on the host: accept a
+    segment only if none of its start, mid and end cells is occupied, then
+    mark its start and end cells. Stops after `limit` acceptances (None:
+    walks every candidate). Returns the table as numpy arrays, the accepted
+    rows in order and the occupancy."""
     nx, ny, n_cells = grid_cells(width, height, cell_size)
     occ = (np.zeros(n_cells, bool) if occupied is None
-           else np.asarray(occupied).copy())
-    sp = np.asarray(segs.sp)
-    ep = np.asarray(segs.ep)
-    length = np.asarray(segs.length)
-    angle = np.asarray(segs.angle)
-    resp = np.asarray(segs.response)
-    valid = np.asarray(segs.valid) & (length > min_length)
-
-    order = np.argsort(-np.where(valid, length, -1.0), kind="stable")
+           else np.array(_to_np(occupied), bool))
+    tab = SegmentTable(*[_to_np(a) for a in segs])
+    valid = tab.valid & (tab.length > min_length)
+    order = np.argsort(-np.where(valid, tab.length, -1.0), kind="stable")
 
     def cell_of(p):
         return (np.clip((p[..., 1] / cell_size).astype(np.int32), 0, ny - 1)
@@ -295,18 +291,26 @@ def dedup_segments_grid_np(segs, *, width, height, cell_size, max_segs,
                 + np.clip((p[..., 0] / cell_size).astype(np.int32), 0,
                           nx - 1))
 
-    mid = 0.5 * (sp + ep)
-    c_s, c_m, c_e = cell_of(sp), cell_of(mid), cell_of(ep)
+    mid = 0.5 * (tab.sp + tab.ep)
+    c_s, c_m, c_e = cell_of(tab.sp), cell_of(mid), cell_of(tab.ep)
     keep = []
     for i in order:
-        if not valid[i]:
+        if not valid[i] or len(keep) == limit:
             break  # sorted: the rest are invalid
         if occ[c_s[i]] or occ[c_m[i]] or occ[c_e[i]]:
             continue
         occ[c_s[i]] = occ[c_e[i]] = True
         keep.append(i)
-        if len(keep) == max_segs:
-            break
+    return tab, keep, occ
+
+
+def _to_np(a):
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _compact(tab: SegmentTable, keep, max_segs: int) -> SegmentTable:
+    """The rows `keep` (in order) at the front of a table of capacity
+    max_segs, zeros after them."""
     out = SegmentTable(
         sp=np.zeros((max_segs, 2), np.float32),
         ep=np.zeros((max_segs, 2), np.float32),
@@ -314,13 +318,44 @@ def dedup_segments_grid_np(segs, *, width, height, cell_size, max_segs,
         angle=np.zeros(max_segs, np.float32),
         response=np.zeros(max_segs, np.float32),
         valid=np.zeros(max_segs, bool))
-    k = len(keep)
+    idx = np.asarray(keep[:max_segs], np.int64)
+    k = len(idx)
     if k:
-        idx = np.asarray(keep)
-        out.sp[:k] = sp[idx]
-        out.ep[:k] = ep[idx]
-        out.length[:k] = length[idx]
-        out.angle[:k] = angle[idx]
-        out.response[:k] = resp[idx]
+        out.sp[:k] = tab.sp[idx]
+        out.ep[:k] = tab.ep[idx]
+        out.length[:k] = tab.length[idx]
+        out.angle[:k] = tab.angle[idx]
+        out.response[:k] = tab.response[idx]
         out.valid[:k] = True
     return out
+
+
+def dedup_segments_grid_np(segs, *, width, height, cell_size, max_segs,
+                           min_length, occupied=None) -> SegmentTable:
+    """Length-sorted greedy grid dedup of a fetched candidate table, on the
+    host in numpy: accept a segment only if none of its start, mid and end
+    cells is occupied, then mark its start and end cells. Returns a
+    SegmentTable of numpy arrays, capacity max_segs."""
+    tab, keep, _ = _grid_walk(segs, width=width, height=height,
+                              cell_size=cell_size, min_length=min_length,
+                              occupied=occupied, limit=max_segs)
+    return _compact(tab, keep, max_segs)
+
+
+def dedup_segments_grid(segs: SegmentTable, *, width, height, cell_size,
+                        max_segs, min_length, occupied=None):
+    """The JAX package's device dedup (`plsvo_tpu/ops/lines.py:370`, a scan
+    over the length-sorted candidates): the accepted segments at the front
+    of a table of capacity max_segs, and the occupancy with every accepted
+    segment's start and end cells marked (those past max_segs too). The
+    greedy walk is sequential; it runs on the host after one fetch of the
+    table, and the results go back to the table's device. No pipeline path
+    calls it (the handler dedups fetched tables with
+    dedup_segments_grid_np)."""
+    tab, keep, occ = _grid_walk(segs, width=width, height=height,
+                                cell_size=cell_size, min_length=min_length,
+                                occupied=occupied, limit=None)
+    dev = segs.sp.device
+    out = SegmentTable(*[torch.as_tensor(a, device=dev)
+                         for a in _compact(tab, keep, max_segs)])
+    return out, torch.as_tensor(occ, device=dev)

@@ -24,9 +24,11 @@ and a keyframe's seed detection and local BA are dispatched at the
 keyframe and fetched with the next drain window. A batch runner
 (`parallel.multi_vo.BatchedVO`) drives several handlers through
 `_force_sync`, `_defer_seed_init` and per-instance replacements of the
-detection, local-BA and seed-table access points. Other camera models
-raise NotImplementedError. Host bookkeeping is the JAX package's numpy
-code, so the host decisions match.
+detection, local-BA and seed-table access points. The handler tracks on a
+pinhole camera; a distorted camera's images are undistorted on ingest
+(`utils.dataset`), and other camera objects raise NotImplementedError.
+Host bookkeeping is the JAX package's numpy code, so the host decisions
+match.
 """
 from __future__ import annotations
 
@@ -139,8 +141,11 @@ def _kf_detect_program_batched(pyrs, occ_uv, occ_ok, *, use_pt, use_ls,
 
 def _check_supported(cam, cfg: Config):
     if not isinstance(cam, PinholeCamera):
-        raise NotImplementedError(f"camera model {type(cam).__name__} is not "
-                                  "ported (only PinholeCamera)")
+        raise NotImplementedError(
+            f"camera model {type(cam).__name__}: the handler tracks on a "
+            "PinholeCamera, as the JAX package's does; undistort the images "
+            "once on ingest and track with the ideal pinhole "
+            "(utils.dataset.ImageFolderDataset.ideal_camera())")
 
 
 class FrameHandlerMono:

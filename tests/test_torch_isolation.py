@@ -92,11 +92,12 @@ def test_entry_point_defaults_to_cuda(monkeypatch):
         frame_handler.resolve_device(None)
 
 
-def _helper_call(name):
+def _helper_call(name, tmp):
     """A call of a public helper that creates tensors, with no device."""
     import numpy as np
 
-    from plsvo_torch import convert
+    from plsvo_torch import convert, run_pipeline
+    from plsvo_torch.utils import checkpoint, dataset
     from plsvo_torch.ops import depth_filter, homography
     from plsvo_torch.parallel.multi_vo import BatchedVO
     from plsvo_torch.pipeline.state import MapState
@@ -124,6 +125,11 @@ def _helper_call(name):
         "line_seeds_from_numpy": lambda: convert.line_seeds_from_numpy({}),
         "MapState": lambda: MapState(fast_config(), 3, (48, 64)),
         "BatchedVO": lambda: BatchedVO(cam, fast_config(), 2),
+        "write_synthetic_dataset": lambda: dataset.write_synthetic_dataset(
+            str(tmp / "ds"), n_frames=1, width=64, height=48),
+        "load_state": lambda: checkpoint.load_state(str(tmp / "none.npz")),
+        "run_pipeline": lambda: run_pipeline.main(
+            ["--synthetic", str(tmp / "cli"), "--n-frames", "1"]),
     }[name]
 
 
@@ -131,14 +137,30 @@ def _helper_call(name):
     "render_aa", "render_batch_aa", "homography_init", "empty_point_seeds",
     "empty_line_seeds", "frame_state_from_numpy", "map_state_from_numpy",
     "point_seeds_from_numpy", "line_seeds_from_numpy", "MapState",
-    "BatchedVO"])
-def test_helpers_default_to_cuda(monkeypatch, name):
+    "BatchedVO", "write_synthetic_dataset", "load_state", "run_pipeline"])
+def test_helpers_default_to_cuda(monkeypatch, tmp_path, name):
     """Every public helper that creates tensors runs on the card unless the
-    caller names a device: with no card and no device it raises."""
-    call = _helper_call(name)
+    caller names a device (the CLI: --device): with no card and no device
+    it raises, before it writes anything."""
+    call = _helper_call(name, tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_native_loader_is_the_ports_own():
+    """plsvo_torch.native builds its own copy of the loader source into the
+    build directory and never loads the JAX package's library
+    (plsvo_tpu/native/_loader.so)."""
+    from plsvo_torch.native import loader
+
+    assert loader._SRC == ROOT / "plsvo_torch" / "native" / "loader.cpp"
+    assert loader.BUILD_ROOT == ROOT / "build" / "plsvo_torch_native"
+    lib = loader.get_lib()
+    if lib is not None:  # g++ and zlib present
+        assert Path(lib._name).resolve().parent.parent == loader.BUILD_ROOT
+        assert "plsvo_tpu" not in lib._name
 
 
 def _slice_config(make, **override):
@@ -197,7 +219,9 @@ class _AtanCamera:
 @pytest.mark.parametrize("make_cam,match", [
     pytest.param(_AtanCamera, "camera model", id="non_pinhole_camera")])
 def test_unported_config_raises(make_cam, match):
-    """Camera models other than the pinhole are not ported."""
+    """The handler tracks on a pinhole camera, as the JAX package's does: any
+    other camera object raises (a distorted camera's frames are undistorted
+    on ingest and tracked with its ideal pinhole)."""
     with pytest.raises(NotImplementedError, match=match):
         frame_handler.FrameHandlerMono(make_cam(), fast_config(), device="cpu")
 

@@ -51,3 +51,91 @@ def test_render_batch_matches_single():
         np.testing.assert_array_equal(batch[k].numpy(),
                                       tsyn.render_aa(scene, cam, R, t,
                                                      device="cpu").numpy())
+
+
+RADTAN = [-0.28, 0.07, 1e-4, 2e-5, 0.0]
+
+
+def _cameras(model):
+    """The same camera in both packages: the radtan pinhole or the ATAN
+    camera of tests/test_pipeline.py's undistort-on-ingest flows."""
+    from plsvo_torch.camera import ATANCamera as TAtan
+    from plsvo_tpu.camera import ATANCamera
+
+    if model == "radtan":
+        return (PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0,
+                                     dist=RADTAN),
+                TCam.create(320, 240, 250.0, 250.0, 160.0, 120.0, dist=RADTAN))
+    if model == "atan":
+        args = (320, 240, 250.0 / 320, 250.0 / 240, 0.5, 0.5)
+        return ATANCamera.create(*args, w=0.93), TAtan.create(*args, w=0.93)
+    return (PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0),
+            TCam.create(320, 240, 250.0, 250.0, 160.0, 120.0))
+
+
+@pytest.mark.parametrize("model", ["pinhole", "radtan", "atan"])
+def test_distorted_render_matches_jax(model):
+    """A camera with distortion renders distorted frames, as the JAX
+    package's renderer does (it casts the rays of the distorted pixels):
+    within 0.05 grey levels at the plane of render_aa's seed-1 scene."""
+    jc, tc = _cameras(model)
+    assert jc.has_distortion == tc.has_distortion == (model != "pinhole")
+    R, t = np.eye(3, dtype=np.float32), np.asarray([0, 0, -2.0], np.float32)
+    jimg, _ = jsyn.render_aa(jsyn.make_scene(np.random.default_rng(1),
+                                             size=1024), jc, R, t)
+    timg = tsyn.render_aa(tsyn.make_scene(np.random.default_rng(1), size=1024),
+                          tc, R, t, device="cpu")
+    np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), atol=0.05,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("model", ["radtan", "atan"])
+def test_depth_at_matches_jax(model, rng):
+    jc, tc = _cameras(model)
+    scene = tsyn.make_scene(np.random.default_rng(1), size=64)
+    R, t = pose(9)
+    uv = rng.uniform(0, 240, (40, 2)).astype(np.float32)
+    want = jsyn.depth_at(jsyn.make_scene(np.random.default_rng(1), size=64),
+                         jc, jnp.asarray(R), jnp.asarray(t), jnp.asarray(uv))
+    got = tsyn.depth_at(scene, tc, R, t, uv, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def _box_scenes():
+    return (jsyn.make_box_scene(np.random.default_rng(11), size=1024,
+                                texel_size=0.004),
+            tsyn.make_box_scene(np.random.default_rng(11), size=1024,
+                                texel_size=0.004))
+
+
+def test_box_scene_is_identical():
+    j, t = _box_scenes()
+    for name in ("texture", "origin", "box_min", "box_max"):
+        np.testing.assert_array_equal(getattr(t, name),
+                                      np.asarray(getattr(j, name)), name)
+    assert (t.texel_size, t.plane_z) == (j.texel_size, j.plane_z)
+
+
+@pytest.mark.parametrize("frame", [0, 27])
+def test_render_boxes_aa_matches_jax(frame):
+    """tests/test_pipeline.py's box sequence (seed 11) at its first and last
+    poses."""
+    j, t = _box_scenes()
+    R, tr = pose(frame)
+    jimg, _ = jsyn.render_boxes_aa(j, PinholeCamera.create(
+        320, 240, 250.0, 250.0, 160.0, 120.0), jnp.asarray(R), jnp.asarray(tr))
+    timg = tsyn.render_boxes_aa(t, TCam.create(320, 240, 250.0, 250.0, 160.0,
+                                               120.0), R, tr, device="cpu")
+    np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), atol=0.05,
+                               rtol=0)
+
+
+def test_photo_scene_and_orbit_equal_jax():
+    j = jsyn.make_photo_scene(texel_size=0.002, tiles=3)
+    t = tsyn.make_photo_scene(texel_size=0.002, tiles=3)
+    np.testing.assert_array_equal(t.texture, np.asarray(j.texture))
+    np.testing.assert_array_equal(t.origin, np.asarray(j.origin))
+    for (jr, jt), (tr, tt) in zip(jsyn.orbit_trajectory(30),
+                                  tsyn.orbit_trajectory(30)):
+        np.testing.assert_array_equal(tr, jr)
+        np.testing.assert_array_equal(tt, jt)
