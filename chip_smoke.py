@@ -86,6 +86,27 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                idle per batched step
   6c. streams — BatchedVO(mode="streams"), 2 pipelined handlers, 20
                frames: every frame delivered once
+  6e. mesh    — the multi-device layer on the one card (phase_mesh): (a)
+               plsvo_torch.parallel.dryrun.dryrun_multichip at 2 shards of
+               the card, its MULTICHIP_EFFICIENCY / MULTICHIP_BA_COMM_SPLIT
+               lines printed; (b) BatchedVO(mesh=2 shards of the card) in
+               6b's configuration on 6b's frames, MESH_FRAMES calls with the
+               launch counts set to 0 before and read after, MESH_PROFILED
+               more under torch.profiler, flush(), every K2 launch captured
+               for phase 7: every frame once, DEFAULT kept, ATE < 1%, each
+               synced carry equal to its mirror, each sequence within
+               SOLO_TOL_M per frame of 6b's unsharded run, one reprojection
+               launch of B/2 x 384 rows per shard per batched step; (c) a
+               [card, CPU] mesh, B = 2 at 320x240, 16 frames (pipelined,
+               depth 4): a tensor on the wrong device fails it, stages and
+               centres as the card alone (within SOLO_TOL_M); (d) single,
+               8-shard and (2, 4) hierarchical BA at tests/test_ba_scale.py's
+               full size (K=96, L=50176) at its quality bars; (e) two
+               processes over gloo, each with two shards of the card,
+               against one process (kf_t 5e-4, local rows 5e-3, n_obs
+               equal), and NCCL brought up at world size 1 with one
+               all_reduce (the workers are this script with
+               --mesh-ba-worker / --mesh-nccl-worker)
   6d. soaks   — tests/test_soak.py with the port alone, pipelined: 310
                frames at 320x240, fast_config() (8 keyframe slots), the
                orbit; at depth 12 without the blackout, and at depth 4 with
@@ -1671,7 +1692,7 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
           + f"; per batched step: {n_launch / n:.0f} kernel launches, "
           f"{n_sync / n:.1f} host syncs", flush=True)
     return dict(kind=kind, captured=captured, launches=launches, fps=fps,
-                gn=gn,
+                gn=gn, delivered=delivered,
                 k1_inputs=k1_inputs, drains=drains, ates=ates, paths=paths,
                 solo_err=solo_err, launches_per_step=n_launch / n,
                 syncs_per_step=n_sync / n,
@@ -1922,6 +1943,422 @@ def phase_soak(device, depth, blackout, ransac_draws=None):
                 depth=depth, blackout=blackout)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6e: the multi-device layer on the one card (a mesh of shards that
+# share it), a [card, CPU] mesh, sharded BA at scale and torch.distributed.
+# ---------------------------------------------------------------------------
+
+MESH_FRAMES = 32  # 6b's first frames, with the counts set to 0 around them
+MESH_PROFILED = 4  # more batched steps under torch.profiler
+BIG_BA = dict(K=96, L=50176, O=6)  # tests/test_ba_scale.py's full size
+
+
+def big_ba_problem(rng, K=96, L=50176, O=6, noise=0.03):
+    """tests/test_ba_scale.py's make_big_problem (keyframes on a smooth
+    trajectory, each landmark seen by O consecutive keyframes, landmarks
+    perturbed), built with the port's lie: (numpy problem, (R, t, pos))."""
+    import torch
+
+    from plsvo_torch import lie
+    from plsvo_torch.parallel import ba
+
+    sc = 96.0 / K
+    k = np.arange(K, dtype=np.float32) * sc
+    xi = np.stack([0.02 * k, 0.001 * k, 0 * k, 0 * k, 0.004 * k, 0.001 * k],
+                  -1).astype(np.float32)
+    Rk, tk = (a.numpy() for a in lie.se3_exp(torch.as_tensor(xi)))
+    pos = np.stack([rng.uniform(-4, 4, L), rng.uniform(-3, 3, L),
+                    rng.uniform(3, 9, L)], -1).astype(np.float32)
+    start = (np.arange(L) * (K - O) // L).astype(np.int64)
+    obs_kf = (start[:, None] + np.arange(O)[None]).astype(np.int32)
+    xyz = np.einsum("loij,lj->loi", Rk[obs_kf], pos) + tk[obs_kf]
+    obs_f = (xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)).astype(np.float32)
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    prob = ba.BAProblem(
+        kf_R=Rk, kf_t=tk, kf_fixed=fixed,
+        lm_pos=pos + rng.normal(0, noise, pos.shape).astype(np.float32),
+        lm_valid=np.ones(L, bool), obs_kf=obs_kf, obs_f=obs_f,
+        obs_valid=np.ones((L, O), bool))
+    return prob, (Rk, tk, pos)
+
+
+def mesh_ba_worker(rank, world, port, prob_path, out_path, device):
+    """One process of 6e's two-process run: a gloo group on localhost, a
+    (world, 2) hybrid mesh whose two local shards share `device` (the
+    card), its host-local landmark range, one hierarchical BA iteration."""
+    import torch
+    import torch.distributed as dist
+
+    from plsvo_torch.parallel import ba, distributed
+
+    rank, world = int(rank), int(world)
+    if not distributed.initialize(f"localhost:{port}", num_processes=world,
+                                  process_id=rank, backend="gloo"):
+        fail("mesh worker: the gloo group did not come up")
+    dev = torch.device(device)
+    mesh = distributed.hybrid_mesh(devices=[dev, dev])
+    with np.load(prob_path) as f:
+        prob = ba.BAProblem(**{k: f[k] for k in f.files})
+    L = len(prob.lm_pos)
+    lo, hi = rank * L // world, (rank + 1) * L // world
+    local = prob._replace(**{k: getattr(prob, k)[lo:hi] for k in (
+        "lm_pos", "lm_valid", "obs_kf", "obs_f", "obs_valid")})
+    out, st = distributed.bundle_adjust_multihost(
+        distributed.scatter_problem(local, mesh), mesh, n_iter=1)
+    np.savez(out_path, kf_t=out.kf_t.cpu().numpy(),
+             lm_local=out.lm_pos.cpu().numpy(), lo=lo, hi=hi,
+             mesh=np.asarray([mesh.shape["dcn"], mesh.shape["ici"]]),
+             n_obs=int(st.n_obs))
+    dist.destroy_process_group()
+
+
+def mesh_nccl_worker(port):
+    """NCCL at world size 1: initialize() picks NCCL for the card; one
+    all_reduce."""
+    import torch
+    import torch.distributed as dist
+
+    from plsvo_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{port}", num_processes=1, process_id=0)
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"nccl worker: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}, all_reduce {x.tolist()}", flush=True)
+    if dist.get_backend() != "nccl" or x.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        fail("mesh: the NCCL all_reduce at world size 1 went wrong")
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_workers(argvs, timeout=240):
+    """Start `python3 chip_smoke.py <argv>` for each argv at once; wait for
+    all, kill any left at the timeout; returns their outputs."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__)]
+                              + [str(a) for a in argv],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              stdin=subprocess.DEVNULL) for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            fail(f"mesh: worker {p.args[2:]} exited {p.returncode}: "
+                 f"{out[-2000:]}")
+    return outs
+
+
+def _mesh_sequences(device, B=2, n=16):
+    """tests/test_multi_vo.py's make_sequences at 320x240, rendered by the
+    port: sequence b moves 0.025 m sideways and 0.004 b m up per frame."""
+    from plsvo_torch.camera import PinholeCamera
+    from plsvo_torch.utils import synthetic
+
+    cam = PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0)
+    rng = np.random.default_rng(0)
+    seqs = []
+    for b in range(B):
+        scene = synthetic.make_scene(rng, size=1024)
+        seqs.append([synthetic.render_aa(
+            scene, cam, np.eye(3, dtype=np.float32),
+            np.asarray([0.025 * i, 0.004 * b * i, -2.0], np.float32),
+            device=device).cpu().numpy() for i in range(n)])
+    return cam, seqs
+
+
+def _run_bvo(bvo, frames_at, n):
+    """add_images over n frames and flush(): each sequence's results."""
+    got = [[] for _ in bvo.vos]
+    for i in range(n):
+        for b, r in enumerate(bvo.add_images(frames_at(i), i / 30.0)):
+            if r is not None:
+                got[b].append(r)
+    for rs in bvo.flush():
+        for b, r in enumerate(rs):
+            if r is not None:
+                got[b].append(r)
+    return got
+
+
+def phase_mesh(cam, imgs, gt_centers, device, batched_run):
+    """Phase 6e (docstring of the module): (a) dryrun_multichip at 2
+    shards on the card; (b) BatchedVO over a 2-shard mesh on the card in
+    6b's configuration, MESH_FRAMES frames with the launch counts set to 0
+    before and read after, MESH_PROFILED more under torch.profiler,
+    flush(), every K2 launch captured; (c) a [card, CPU] mesh, B = 2 at
+    320x240; (d) sharded and hierarchical BA at test_ba_scale's full size;
+    (e) two gloo processes sharing the card against one process, and NCCL
+    at world size 1."""
+    import torch
+
+    from plsvo_torch.config import fast_config
+    from plsvo_torch.ops import fast_score as fs
+    from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.parallel import ba, distributed
+    from plsvo_torch.parallel.dryrun import dryrun_multichip
+    from plsvo_torch.parallel.mesh import Mesh, Shards
+    from plsvo_torch.parallel.multi_vo import BatchedVO
+    from plsvo_torch.pipeline import fused
+    from plsvo_torch.pipeline.frame_handler import STAGE_DEFAULT
+    from plsvo_torch.pipeline.state import validate_map
+    from plsvo_torch.utils import trajectory
+
+    t_phase = time.perf_counter()
+    kind = "mesh"
+    out = dict(kind=kind)
+    # (a) the production multi-device programs
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(2, devices=[device, device], reps=2)
+    print(f"{kind}: dryrun_multichip(2) on {device} twice in "
+          f"{time.perf_counter() - t0:.1f} s; BA chi2 {out['dryrun']['ba_chi2']}",
+          flush=True)
+
+    # (b) BatchedVO over two shards of the card, 6b's configuration
+    B = BATCH
+    cfg = run_config("pipelined")
+    frames = uint8_frames(imgs)
+    n_all = MESH_FRAMES + MESH_PROFILED
+    mesh = Mesh([device, device], ("seq",))
+    bvo = BatchedVO(cam, cfg, B, mesh=mesh, axis="seq")
+    captured, site = [], ["other"]
+    calls = []
+
+    def k2_capture(args, kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs), site[0]))
+
+    delivered = [[] for _ in range(B)]
+
+    def track(i):
+        t1 = time.perf_counter()
+        rs = bvo.add_images(staggered(frames, i, B), i / 30.0)
+        calls.append(((time.perf_counter() - t1) * 1e3,
+                      all(st == STAGE_DEFAULT for st in bvo.stages)))
+        for b, r in enumerate(rs):
+            if r is not None:
+                delivered[b].append(r)
+
+    undo = _patched([(ma, "capture", k2_capture)] + _site_patches(site))
+    try:
+        fs.launches = 0
+        ma.launches = 0
+        for i in range(MESH_FRAMES):
+            track(i)
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+        timed = list(calls)
+        wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
+            lambda: [track(i) for i in range(MESH_FRAMES, n_all)])
+        for rs in bvo.flush():
+            for b, r in enumerate(rs):
+                if r is not None:
+                    delivered[b].append(r)
+    finally:
+        undo()
+    out.update(captured=captured, launches=launches)
+    if not launches["fast_score"] or not launches["mixed_align"]:
+        fail(f"{kind}: kernel launches of the mesh run {launches}: each "
+             "kernel must launch")
+    if not isinstance(bvo._mt_stack, Shards) or bvo.unsharded_steps:
+        fail(f"{kind}: the batched steps did not run sharded "
+             f"({bvo.unsharded_steps} unsharded)")
+    engaged = next((i for i, (_, ok) in enumerate(calls) if ok), None)
+    carries = bvo.sync_carry()
+    ref = {b: {r.frame_id: r for r in batched_run["delivered"][b]}
+           for b in range(B)}
+    ates, worst = [], 0.0
+    for b, vo in enumerate(bvo.vos):
+        ids = [r.frame_id for r in delivered[b]]
+        if ids != list(range(n_all)):
+            fail(f"{kind}: sequence {b} delivered {ids}, not 0..{n_all - 1}")
+        st = [r.stage for r in delivered[b]]
+        if STAGE_DEFAULT not in st:
+            fail(f"{kind}: sequence {b} never reached STAGE_DEFAULT")
+        fd = st.index(STAGE_DEFAULT)
+        if any(x != STAGE_DEFAULT for x in st[fd:]):
+            fail(f"{kind}: sequence {b} left STAGE_DEFAULT after frame {fd}")
+        est = _centres(delivered[b][fd:])
+        gt = gt_centers[[max(0, f - b) for f in ids[fd:]]]
+        ate = trajectory.ate_rmse(est.astype(np.float64), gt.astype(np.float64))
+        path = float(np.linalg.norm(np.diff(gt, axis=0), axis=-1).sum())
+        if not ate < 0.01 * path:
+            fail(f"{kind}: sequence {b} ATE {ate} >= 1% of its path {path}")
+        ates.append(100 * ate / path)
+        bad = fused.carry_mismatches(carries[b], fused.map_tables_upload(vo.map))
+        if bad:
+            fail(f"{kind}: sequence {b}'s synced carry differs from its "
+                 f"mirror in {bad}")
+        errs = validate_map(vo.map)
+        if errs:
+            fail(f"{kind}: sequence {b} map inconsistent: {errs[:5]}")
+        both = [r for r in delivered[b] if r.frame_id in ref[b]]
+        if [r.stage for r in both] != [ref[b][r.frame_id].stage for r in both]:
+            fail(f"{kind}: sequence {b}'s stages differ from 6b's")
+        d = np.linalg.norm(_centres(both) - _centres(
+            [ref[b][r.frame_id] for r in both]), axis=-1)
+        worst = max(worst, float(d.max()))
+        if d.max() >= SOLO_TOL_M:
+            fail(f"{kind}: sequence {b} centres {d.max()} m from 6b's "
+                 f"unsharded run (limit {SOLO_TOL_M})")
+    dflt = [ms for ms, ok in timed if ok]
+    steady = dflt[len(dflt) // 2:] if len(dflt) > 6 else dflt
+    step_ms = float(np.mean(steady))
+    n = MESH_PROFILED
+    out.update(fps=B * 1e3 / step_ms, step_ms=step_ms,
+               launches_per_step=n_launch / n, syncs_per_step=n_sync / n,
+               idle=(100 - 100 * busy_ms / n / step_ms) if busy_ms > 0 else None,
+               ates=ates, worst_mm=worst * 1e3, engaged=engaged)
+    sites = {}
+    for args, _, where in captured:
+        key = (where, args[0].shape[0])
+        sites[key] = sites.get(key, 0) + 1
+    n_rep = (B // 2) * (cfg.caps.max_fts + 2 * cfg.caps.max_segs)
+    if sites.get(("reproject", n_rep), 0) < 2 * (MESH_FRAMES - engaged - 1):
+        fail(f"{kind}: {sites.get(('reproject', n_rep), 0)} reprojection "
+             f"launches of N={n_rep}, not one per shard per batched step")
+    out.update(k2_sites=sites, n_rep=n_rep)
+    print(f"{kind}: BatchedVO over 2 shards of {device}, B={B}: every "
+          f"sequence DEFAULT from call {engaged}, every frame delivered once, "
+          f"ATE per sequence (% of its path) "
+          + ", ".join(f"{a:.3f}" for a in ates)
+          + f", each synced carry equals its mirror, centres within "
+          f"{worst * 1e3:.4f} mm of 6b's unsharded run; K1 {launches['fast_score']}"
+          f" and K2 {launches['mixed_align']} launches in {MESH_FRAMES} calls; "
+          f"K2 by (site, N): {sorted(sites.items())}", flush=True)
+    print(f"{kind}: aggregate fps {out['fps']:.2f} (mean call {step_ms:.2f} "
+          f"ms over the last half of the all-DEFAULT calls); per batched "
+          f"step under torch.profiler: {n_launch / n:.0f} launches, "
+          f"{n_sync / n:.1f} host syncs, wall {wall_ms / n:.2f} ms, idle "
+          f"{out['idle']}%", flush=True)
+
+    # (c) a mesh of the card and the CPU
+    t0 = time.perf_counter()
+    cam2, seqs = _mesh_sequences(device)
+    cfg2 = fast_config()
+    cfg2 = dataclasses.replace(cfg2, pipeline=dataclasses.replace(
+        cfg2.pipeline, pipelined=True, pipeline_depth=4))
+    mixed_mesh = Mesh([device, "cpu"], ("seq",))
+    mixed = BatchedVO(cam2, cfg2, 2, mesh=mixed_mesh)
+    got = _run_bvo(mixed, lambda i: [s[i] for s in seqs], 16)
+    plain = _run_bvo(BatchedVO(cam2, cfg2, 2, device=device),
+                     lambda i: [s[i] for s in seqs], 16)
+    if ([part.pt_pos.device for part in mixed._mt_stack]
+            != mixed_mesh.local_devices):
+        fail(f"{kind}: the [card, CPU] mesh's carries are not on their shards")
+    d_mixed = 0.0
+    for b in range(2):
+        if [r.frame_id for r in got[b]] != list(range(16)):
+            fail(f"{kind}: [card, CPU] sequence {b} delivered "
+                 f"{[r.frame_id for r in got[b]]}")
+        if [r.stage for r in got[b]] != [r.stage for r in plain[b]]:
+            fail(f"{kind}: [card, CPU] sequence {b}'s stages differ from "
+                 "the card's alone")
+        d_mixed = max(d_mixed, float(np.linalg.norm(
+            _centres(got[b]) - _centres(plain[b]), axis=-1).max()))
+    if d_mixed >= SOLO_TOL_M or got[0][-1].stage != STAGE_DEFAULT:
+        fail(f"{kind}: [card, CPU] run {d_mixed} m from the card's alone")
+    for vo, carry in zip(mixed.vos, mixed.sync_carry()):
+        if fused.carry_mismatches(carry, fused.map_tables_upload(vo.map)):
+            fail(f"{kind}: [card, CPU] carry differs from its mirror")
+    out["mixed_mm"] = d_mixed * 1e3
+    print(f"{kind}: [{device}, cpu] mesh, B=2 at 320x240, 16 frames "
+          f"(pipelined, depth 4): every frame once, stages as on the card "
+          f"alone, centres within {d_mixed * 1e3:.4f} mm of it, carries equal "
+          f"their mirrors; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) test_ba_scale at its full size
+    prob, (Rk, tk, pos) = big_ba_problem(np.random.default_rng(0), **BIG_BA)
+    tp = ba.problem_to(prob, device)
+    chi_init = float(ba.bundle_adjust(tp, n_iter=0)[1].chi2)
+    solvers = {
+        "single": lambda: ba.bundle_adjust(tp, n_iter=3),
+        "sharded": lambda: ba.bundle_adjust_sharded(
+            prob, Mesh([device] * 8, ("lm",)), "lm", n_iter=3),
+        "hybrid": lambda: distributed.bundle_adjust_multihost(
+            prob, distributed.hybrid_mesh(ici_per_host=4,
+                                          devices=[device] * 8), n_iter=3)}
+    res, ba_ms = {}, {}
+    for name, fn in solvers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        ba_ms[name] = (time.perf_counter() - t0) * 1e3
+    err0 = np.linalg.norm(prob.lm_pos - pos, axis=-1)
+    chi0 = float(res["single"][1].chi2)
+    for name, (o, st) in res.items():
+        perr = np.linalg.norm(o.kf_t.cpu().numpy() - tk, axis=-1)
+        err = np.linalg.norm(o.lm_pos.cpu().numpy() - pos, axis=-1)
+        c2 = float(st.chi2)
+        if not (c2 <= 0.3 * chi_init and perr.max() < 0.06
+                and np.median(perr) < 0.01
+                and np.median(err) < 1.25 * np.median(err0)
+                and (name == "single" or c2 <= max(chi0 * 1.1, 1e-4 * chi_init)
+                     + 1e-9)):
+            fail(f"{kind}: {name} BA at K=96, L=50176 misses test_ba_scale's "
+                 f"bars: chi2 {c2} (initial {chi_init}, single {chi0}), pose "
+                 f"err max {perr.max()} median {np.median(perr)}, landmark "
+                 f"median {np.median(err)} (initial {np.median(err0)})")
+    out["ba_ms"] = ba_ms
+    print(f"{kind}: BA at test_ba_scale's size (K=96, L=50176, O=6, 3 "
+          f"iterations) single / 8 shards / (2, 4) hybrid: chi2 "
+          + " / ".join(f"{float(res[k][1].chi2):.4e}" for k in res)
+          + f" (initial {chi_init:.4e}); ms " + " / ".join(
+              f"{ba_ms[k]:.1f}" for k in res) + " (first calls)", flush=True)
+
+    # (e) torch.distributed: two gloo processes sharing the card, and NCCL
+    t0 = time.perf_counter()
+    small, _ = big_ba_problem(np.random.default_rng(1), K=24, L=4096)
+    tmp = os.path.join(OUT_DIR, "mesh_workers")
+    os.makedirs(tmp, exist_ok=True)
+    prob_path = os.path.join(tmp, "prob.npz")
+    np.savez(prob_path, **{k: v for k, v in small._asdict().items()
+                           if v is not None})
+    port = _free_port()
+    outs = [os.path.join(tmp, f"w{r}.npz") for r in range(2)]
+    _run_workers([["--mesh-ba-worker", r, 2, port, prob_path, outs[r],
+                   device] for r in range(2)])
+    ref_p, ref_st = ba.bundle_adjust(ba.problem_to(small, device), n_iter=1)
+    ref_t, ref_lm = ref_p.kf_t.cpu().numpy(), ref_p.lm_pos.cpu().numpy()
+    w_err = [0.0, 0.0]
+    for r in range(2):
+        with np.load(outs[r]) as w:
+            lo, hi = int(w["lo"]), int(w["hi"])
+            w_err = [max(w_err[0], float(np.abs(w["kf_t"] - ref_t).max())),
+                     max(w_err[1], float(np.abs(
+                         w["lm_local"] - ref_lm[lo:hi]).max()))]
+            if (list(w["mesh"]) != [2, 2] or int(w["n_obs"]) !=
+                    int(ref_st.n_obs)):
+                fail(f"{kind}: gloo worker {r}: mesh {list(w['mesh'])}, n_obs "
+                     f"{int(w['n_obs'])} against {int(ref_st.n_obs)}")
+    if w_err[0] >= 5e-4 or w_err[1] >= 5e-3:
+        fail(f"{kind}: two gloo processes against one: kf_t {w_err[0]}, "
+             f"local rows {w_err[1]}")
+    nccl = _run_workers([["--mesh-nccl-worker", _free_port()]])[0]
+    out["gloo_err"] = w_err
+    print(f"{kind}: two gloo processes x 2 shards of {device} against one "
+          f"process: kf_t max abs err {w_err[0]:.3e}, local rows "
+          f"{w_err[1]:.3e}, n_obs equal; {nccl.strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{kind}: phase 6e took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def phase_k1_batched(k1_inputs):
     """K1 at the batched detection's shapes: the largest captured batch of
     R x levels pyramid images, kernel (one launch per 32 images) against
@@ -2094,7 +2531,8 @@ def main():
     phase_streams(cam, imgs, device)
     spp = phase_pipelined(cam, imgs, gt, device, n_main, sl)
     sb8 = phase_batched(cam, imgs, gt, device, n_main)
-    k2 = phase_k2([c + (r["kind"],) for r in (sl, sp, so, spp, sb8)
+    smesh = phase_mesh(cam, imgs, gt, device, sb8)
+    k2 = phase_k2([c + (r["kind"],) for r in (sl, sp, so, spp, sb8, smesh)
                    for c in r["captured"]])
     k1b = phase_k1_batched(sb8["k1_inputs"])
     sb = phase_ba(sl, device)
@@ -2236,7 +2674,9 @@ def main():
     # "launches" counts the main path's run (default_config(): points +
     # lines + local BA); "launches_points_only", "launches_line_only" and
     # "launches_pipelined" the other three runs; "launches_batched" the
-    # batched run's n_main frames (BATCH sequences, vmap mode), and the
+    # batched run's n_main frames (BATCH sequences, vmap mode),
+    # "launches_mesh" the mesh run's MESH_FRAMES (the batch over two shards
+    # of the card; "shape_mesh" K2's per-shard reprojection N), and the
     # "_batched" times are at that run's shapes (K1: the largest batched
     # keyframe detection; K2: the B x 384-row reprojection launch with the
     # most valid rows).
@@ -2256,6 +2696,7 @@ def main():
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "shape": levels,
          "launches_batched": sb8["launches"]["fast_score"],
+         "launches_mesh": smesh["launches"]["fast_score"],
          "shape_batched": k1b["shapes"], "ms_batched": k1b["ms"],
          "kernel_ms_batched": k1b["kernel_ms"],
          "plain_ms_batched": k1b["plain_ms"],
@@ -2279,6 +2720,8 @@ def main():
          "kernel_ms_run_max": k2_run[("lines", "reproject", n_k2)][1],
          "shape": [n_k2],
          "launches_batched": sb8["launches"]["mixed_align"],
+         "launches_mesh": smesh["launches"]["mixed_align"],
+         "shape_mesh": [smesh["n_rep"]],
          "shape_batched": [n_k2b], "ms_batched": k2b_ms,
          "kernel_ms_batched": k2b_dev, "plain_ms_batched": k2b_plain,
          "bound_ms_batched": k2b_bound, "bound_by_batched": k2b_by},
@@ -2301,7 +2744,10 @@ def main():
           f"{BATCH * 1e3 / spp['bench_mean']:.2f}), "
           f"{sb8['launches_per_step']:.0f} launches and "
           f"{sb8['syncs_per_step']:.1f} host syncs per batched step, idle "
-          f"{sb8['idle']}%; soaks " + ", ".join(
+          f"{sb8['idle']}%; mesh run (the batch over 2 shards of the card) "
+          f"{smesh['fps']:.2f} aggregate fps, {smesh['launches_per_step']:.0f} "
+          f"launches and {smesh['syncs_per_step']:.1f} host syncs per batched "
+          f"step, phase 6e {smesh['seconds']:.1f} s; soaks " + ", ".join(
               f"depth {k['depth']}{' with blackout' if k['blackout'] else ''}: "
               f"{k['evictions']} keyframe evictions, tail ATE {k['ate']}"
               for k in soaks) + f"; cli run (python -m plsvo_torch.run_pipeline "
@@ -2318,4 +2764,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-ba-worker"]:
+        mesh_ba_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh-nccl-worker"]:
+        mesh_nccl_worker(*sys.argv[2:])
+    else:
+        main()

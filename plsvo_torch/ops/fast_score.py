@@ -52,17 +52,22 @@ def _launch(imgs, threshold: float):
         offs.append(offs[-1] + im.numel())
     mask = torch.empty(offs[-1], dtype=torch.bool, device=dev)
     score = torch.empty(offs[-1], dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for a in range(0, len(imgs), MAX_IMAGES):
-        part = range(a, min(a + MAX_IMAGES, len(imgs)))
-        _build.check(lib.plsvo_fast_score_levels(
-            _table(ctypes.c_void_p, [imgs[i].data_ptr() for i in part]),
-            _table(ctypes.c_void_p, [mask.data_ptr() + offs[i] for i in part]),
-            _table(ctypes.c_void_p,
-                   [score.data_ptr() + 4 * offs[i] for i in part]),
-            _table(ctypes.c_int, [d for i in part for d in imgs[i].shape]),
-            len(part), float(threshold), stream), "plsvo_fast_score_levels")
-        launches += 1
+    # the C entry launches on the thread's current device: make it the
+    # images' (a mesh may hold shards on several cards)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for a in range(0, len(imgs), MAX_IMAGES):
+            part = range(a, min(a + MAX_IMAGES, len(imgs)))
+            _build.check(lib.plsvo_fast_score_levels(
+                _table(ctypes.c_void_p, [imgs[i].data_ptr() for i in part]),
+                _table(ctypes.c_void_p,
+                       [mask.data_ptr() + offs[i] for i in part]),
+                _table(ctypes.c_void_p,
+                       [score.data_ptr() + 4 * offs[i] for i in part]),
+                _table(ctypes.c_int, [d for i in part for d in imgs[i].shape]),
+                len(part), float(threshold), stream),
+                "plsvo_fast_score_levels")
+            launches += 1
     return mask, score, offs
 
 

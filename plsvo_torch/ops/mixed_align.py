@@ -64,8 +64,8 @@ _INPUTS = ((256, _F32, True), (2, _F32, False), (64, _F32, True),
            (1, _BOOL, False))
 
 
-def _pointers(inputs, N):
-    """Device pointers of the kernel's inputs. The main path's inputs are
+def _pointers(inputs, N, dev):
+    """Device pointers of the kernel's inputs, all on card `dev`. The main path's inputs are
     already f32/bool, contiguous and aligned: then nothing is copied.
     Returns (pointers, the tensors they point into)."""
     ptrs, keep = [], []
@@ -76,10 +76,10 @@ def _pointers(inputs, N):
         if vec and p % 16:  # float4 reads need 16-byte alignment
             a = a.clone()
             p = a.data_ptr()
-        if not a.is_cuda or a.numel() != N * k:
+        if a.device != dev or a.numel() != N * k:
             raise ValueError(f"mixed_align_cuda: an input of shape "
                              f"{tuple(a.shape)} on {a.device} is not {k} "
-                             f"values per row on the card")
+                             f"values per row on {dev}")
         ptrs.append(p)
         keep.append(a)
     return ptrs, keep
@@ -116,18 +116,21 @@ def mixed_align_cuda(win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv,
     N = win.shape[0]
     inputs = (win, corner, ref_patch, ref_dx, ref_dy, dgrad, h3inv, h1inv, d,
               is_1d, uv_init, wh, valid)
-    ptrs, keep = _pointers(inputs, N)
+    ptrs, keep = _pointers(inputs, N, win.device)
     # one allocation: uv (N, 2) f32 | mean_diff (N,) f32 | converged (N,) bool
     out = torch.empty(13 * N, dtype=torch.uint8, device=win.device)
     base = out.data_ptr()
     if capture is not None:
         capture(inputs, dict(patch_size=patch_size, wp=wp, n_iter=n_iter,
                              conv_eps=conv_eps))
-    _build.check(lib.plsvo_mixed_align(
-        *ptrs, base, base + 12 * N, base + 8 * N, N, int(n_iter),
-        float(conv_eps), conv_sq(conv_eps),
-        torch.cuda.current_stream(win.device).cuda_stream),
-        "plsvo_mixed_align")
+    # the C entry launches on the thread's current device: make it the
+    # inputs' (a mesh may hold shards on several cards)
+    with torch.cuda.device(win.device):
+        _build.check(lib.plsvo_mixed_align(
+            *ptrs, base, base + 12 * N, base + 8 * N, N, int(n_iter),
+            float(conv_eps), conv_sq(conv_eps),
+            torch.cuda.current_stream(win.device).cuda_stream),
+            "plsvo_mixed_align")
     del keep  # the copies, if any, stay alive until the launch is queued
     uv = out[:8 * N].view(_F32).view(N, 2)
     md = out[8 * N:12 * N].view(_F32)

@@ -14,6 +14,17 @@ Port of the single-device part of `plsvo_tpu/parallel/ba.py`:
 - `bundle_adjust` runs a fixed number of damped GN iterations as a Python
   loop. The accept gate is a `torch.where` on 0-d tensors and the solve is
   `torch.linalg.solve_ex`, so the loop never waits for the device.
+- Map-scale problems (more than F64_SLOTS observation slots) solve in f64
+  and return f32; smaller ones (the local BA windows) in f32, as the JAX
+  package does. A landmark's depth is weakly observed over short
+  baselines, so its 3x3 block is near-singular and the Schur terms built
+  from its inverse cancel against the pose blocks: in f32 their rounding
+  swamps the gradient of a map-scale problem, and whether the solve
+  converges is luck (tests/test_ba_scale.py's K=96, L=50176 problem, seeds
+  0-2, `tests/ba_scale_precision.py`: the f32 rounding error of the
+  gradient is ~100x the gradient in both packages; in f32 the JAX package
+  misses that test's bars for seed 2, the port for seed 0; in f64 each
+  seed converges to chi2 < 1e-9).
 
 The scatter-adds sum in order on the CPU and with atomics on the card, so
 a card result differs from a CPU result (and from another card run) in
@@ -23,8 +34,14 @@ The host-side builders (`problem_from_map`, `problem_from_window`) and the
 write-backs are the JAX package's numpy code; the builders return numpy
 leaves, `problem_to` moves a problem onto a device. The solver takes a
 leading problem axis (`bundle_adjust_blob_batched`: R same-shape windows of
-several sequences in one solve); the sharded solve over a device mesh is
-not ported.
+several sequences in one solve).
+
+`bundle_adjust_sharded` splits the landmark rows (and their observations)
+over an axis of a device mesh (`parallel/mesh.py`), poses replicated: each
+shard assembles its partial reduced system on its own device, `Mesh.psum`
+sums S, b and chi2, the small solve runs once on the first device and is
+copied to every shard, and back-substitution stays on each shard.
+`parallel/distributed.py` runs the same loop with a two-stage reduction.
 """
 from __future__ import annotations
 
@@ -37,6 +54,7 @@ from plsvo_torch import lie
 from plsvo_torch.batlin import inv3x3
 from plsvo_torch.device import resolve_device
 from plsvo_torch.indexing import take
+from plsvo_torch.parallel.mesh import Shards, on_device
 
 
 class BAProblem(NamedTuple):
@@ -88,6 +106,20 @@ def problem_to(prob: BAProblem, device=None) -> BAProblem:
         return t.to(device)
 
     return BAProblem(*[conv(n, a) for n, a in zip(BAProblem._fields, prob)])
+
+
+# observation slots (L x O) above which a problem solves in f64
+F64_SLOTS = 1 << 16
+
+
+def _solve_dtype(n_slots: int):
+    return torch.float64 if n_slots > F64_SLOTS else torch.float32
+
+
+def _cast(prob: BAProblem, dtype) -> BAProblem:
+    """The problem with its float leaves in `dtype`."""
+    return BAProblem(*[a if a is None or not a.is_floating_point()
+                       else a.to(dtype) for a in prob])
 
 
 def _host(a) -> np.ndarray:
@@ -358,12 +390,12 @@ def bundle_adjust(prob: BAProblem, *, n_iter: int = 10,
         return (BAProblem(*[None if a is None else a[0] for a in p]),
                 BAStats(*[a[0] for a in st]))
     K = prob.kf_R.shape[1]
-    eye = torch.eye(6 * K, dtype=prob.kf_R.dtype, device=prob.kf_R.device)
-    p = prob
+    p = p0 = _cast(prob, _solve_dtype(prob.obs_valid[0].numel()))
+    eye = torch.eye(6 * K, dtype=p.kf_R.dtype, device=p.kf_R.device)
     for _ in range(n_iter):
         S, b, Hpp_inv, b_p, W, chi2, _ = _assemble_shard(p, huber, lm_damp)
         if pose_prior > 0.0:
-            s_add, b_add = _pose_prior_terms(p, prob, pose_prior)
+            s_add, b_add = _pose_prior_terms(p, p0, pose_prior)
             S = S + s_add * eye
             b = b + b_add
         dc = _precond_solve(S, b, damping, p.kf_fixed)
@@ -378,7 +410,134 @@ def bundle_adjust(prob: BAProblem, *, n_iter: int = 10,
             accept.view((-1,) + (1,) * (a.dim() - 1)), a, b_)
             for a, b_ in zip(p_new, p)])
     _, _, _, _, _, chi2, n_obs = _assemble_shard(p, huber, lm_damp)
-    return p, BAStats(chi2=chi2, n_obs=n_obs)
+    return (_cast(p, prob.kf_R.dtype),
+            BAStats(chi2=chi2.to(prob.kf_R.dtype), n_obs=n_obs))
+
+
+_ROW_LEAVES = ("lm_pos", "lm_valid", "obs_kf", "obs_f", "obs_valid",
+               "obs_line", "lm_dir")
+
+
+def shard_problem(prob: BAProblem, mesh, axes) -> Shards:
+    """The problem over the local shards of `mesh`: landmark rows and their
+    observations split over `axes`, poses on every shard, each part on its
+    shard's device. `prob` holds the rows of this process's blocks in block
+    order (every row, in a single process); their count must divide evenly
+    over the local shards."""
+    mesh.check_spans(axes)
+    n = len(mesh.local_devices)
+    L = len(prob.lm_pos)
+    if L % n:
+        raise ValueError(f"{L} landmark rows over {n} shards: pad landmarks "
+                         "to a multiple of the mesh size")
+    Ls = L // n
+    first = min(mesh.index(s, axes) for s in range(n))
+    parts = []
+    for s, dev in enumerate(mesh.local_devices):
+        lo = (mesh.index(s, axes) - first) * Ls
+        parts.append(problem_to(prob._replace(**{
+            k: getattr(prob, k)[lo:lo + Ls] for k in _ROW_LEAVES
+            if getattr(prob, k) is not None}), dev))
+    return Shards(parts)
+
+
+def global_slots(parts, mesh) -> int:
+    """Observation slots of the whole problem the local shards hold a
+    part of (every process holds as many rows)."""
+    n_local = sum(q.obs_valid.numel() for q in parts)
+    return n_local * mesh.size // len(mesh.local_devices)
+
+
+def join_problem(parts) -> BAProblem:
+    """The shards' landmark rows concatenated in shard order and the first
+    shard's poses, on the first shard's device."""
+    dev = parts[0].kf_R.device
+    return parts[0]._replace(**{
+        k: torch.cat([getattr(p, k).to(dev) for p in parts])
+        for k in _ROW_LEAVES if getattr(parts[0], k) is not None})
+
+
+def _bundle_adjust_parts(parts, reduce, n_slots, *, n_iter, huber, damping,
+                         lm_damp, pose_prior, solve_each=False):
+    """bundle_adjust over per-shard problems whose partial S, b, chi2 and
+    n_obs `reduce` sums (a list in, one sum per shard out), at the
+    precision of a problem of n_slots observation slots. The solve runs
+    once, on the first shard's device, and its step is copied to every
+    shard; each shard applies it and back-substitutes its own rows. With
+    solve_each every shard solves its own reduced system instead (where
+    `reduce` does not give every shard the same sums)."""
+    dtype = parts[0].kf_R.dtype
+    p = [_cast(BAProblem(*[None if a is None else a[None] for a in q]),
+               _solve_dtype(n_slots)) for q in parts]
+    p0 = p
+    K = p[0].kf_R.shape[1]
+    for _ in range(n_iter):
+        asm = []
+        for q in p:
+            with on_device(q.kf_R.device):
+                asm.append(_assemble_shard(q, huber, lm_damp))
+        S, b, chi2 = (reduce([a[i] for a in asm]) for i in (0, 1, 5))
+        dcs = []
+        for s in range(len(p) if solve_each else 1):
+            Ss, bs = S[s], b[s]
+            with on_device(Ss.device):
+                if pose_prior > 0.0:
+                    s_add, b_add = _pose_prior_terms(p[s], p0[s], pose_prior)
+                    Ss = Ss + s_add * torch.eye(6 * K, dtype=Ss.dtype,
+                                                device=Ss.device)
+                    bs = bs + b_add
+                dcs.append(_precond_solve(Ss, bs, damping, p[s].kf_fixed))
+        p_new, c2n = [], []
+        for s, (q, a) in enumerate(zip(p, asm)):
+            dc = dcs[s if solve_each else 0].to(q.kf_R.device)
+            with on_device(q.kf_R.device):
+                p_new.append(_apply_updates(q, dc, *a[2:5]))
+                c2n.append(_assemble_shard(p_new[-1], huber, lm_damp)[5])
+        c2n = reduce(c2n)
+        # keep the update only if chi2 did not blow up (the same verdict
+        # on every shard: the sums are the same)
+        p = [BAProblem(*[None if x is None else torch.where(
+            (c <= c2 * 1.001).view((-1,) + (1,) * (x.dim() - 1)), x, y)
+            for x, y in zip(qn, q)]) for qn, q, c, c2 in zip(p_new, p, c2n, chi2)]
+    fin = []
+    for q in p:
+        with on_device(q.kf_R.device):
+            fin.append(_assemble_shard(q, huber, lm_damp))
+    chi2, n_obs = (reduce([a[i] for a in fin]) for i in (5, 6))
+    return ([_cast(BAProblem(*[None if a is None else a[0] for a in q]), dtype)
+             for q in p], BAStats(chi2=chi2[0][0].to(dtype), n_obs=n_obs[0][0]))
+
+
+def bundle_adjust_sharded(prob: BAProblem, mesh, axis: str = "ba", *,
+                          n_iter: int = 10, huber: float = 1.0 / 250.0,
+                          damping: float = 1e-4, lm_damp: float = 1e-8,
+                          pose_prior: float = 0.0,
+                          comm_identity: bool = False):
+    """Distributed BA: landmark rows (and their observations) split over
+    `axis` of `mesh`, poses replicated. Each shard assembles its partial
+    reduced system on its device, one `Mesh.psum` gives every shard the
+    global S, b and chi2, the solve is replicated and back-substitution is
+    local. L must be divisible by the axis size. `prob` is a whole problem
+    (numpy leaves or tensors) or `shard_problem`'s Shards; returns
+    (problem, stats) with every landmark row, on the mesh's first device.
+
+    comm_identity=True replaces every psum with a local `x * n_dev`
+    (numerically wrong, for timing only; each shard then solves its own
+    system, as the JAX package's shards do): the wall-clock difference
+    from the real reduction isolates its cost."""
+    n = mesh.axis_size(axis)
+    parts = prob if isinstance(prob, Shards) else shard_problem(prob, mesh, axis)
+    if comm_identity:
+        def reduce(xs):
+            return [x * n for x in xs]
+    else:
+        def reduce(xs):
+            return mesh.psum(xs, axis)
+    out, stats = _bundle_adjust_parts(
+        parts, reduce, global_slots(parts, mesh), n_iter=n_iter, huber=huber,
+        damping=damping, lm_damp=lm_damp, pose_prior=pose_prior,
+        solve_each=comm_identity)
+    return join_problem(out), stats
 
 
 def _obs_line_coeffs(sf, ef):

@@ -21,6 +21,14 @@ to B queued windows) of every sequence.
 Sequences still in bootstrap (FIRST/SECOND) or relocalizing run their own
 sync path for that frame; the batch engages only when every sequence is
 DEFAULT.
+
+With a mesh (`parallel/mesh.py`) the batched step splits the batch over
+one axis (`fused._shard_mapped_step`): the seed tables, NextFrameInputs
+and map carry stay per shard on the shard's device between steps, and
+every K2 call site launches once per shard. The handlers, their uploads,
+the batched keyframe detection and the local BA solves stay on the mesh's
+first device, as the JAX package keeps them unsharded; a sequence's rows
+move there when its handler reads them.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from plsvo_torch.device import resolve_device
 from plsvo_torch.image import build_pyramid
 from plsvo_torch.ops import fast_score
 from plsvo_torch.parallel import ba as ba_mod
+from plsvo_torch.parallel import mesh as mesh_mod
 from plsvo_torch.pipeline import fused
 from plsvo_torch.pipeline.frame_handler import (
     STAGE_DEFAULT, FrameHandlerMono, _kf_detect_program_batched)
@@ -51,40 +60,55 @@ def _row(tree, k):
     return tree
 
 
-def _stack_row_get(stack, k):
-    return type(stack)(*[a[k] for a in stack])
-
-
-def _stack_row_set(stack, k, row):
-    return type(stack)(*[torch.cat([S[:k], v[None], S[k + 1:]])
-                         for S, v in zip(stack, row)])
+def _fetch_parts(step):
+    """What the host reads of a batched step: its results and seed
+    convergence (per shard for a sharded step)."""
+    if isinstance(step, mesh_mod.Shards):
+        return mesh_mod.Shards(_fetch_parts(p) for p in step)
+    return (fused.fetch_view(step.fused), step.pt_conv, step.ln_conv)
 
 
 class BatchedVO:
-    """Drives B sequences on one card. Two execution modes:
+    """Drives B sequences on one card or over a device mesh. Two execution
+    modes:
 
     - "vmap" (the default; "auto" resolves to it): one batched device step
-      per frame over the whole batch.
+      per frame over the whole batch; with `mesh` (a `parallel.mesh.Mesh`)
+      split over its axis `axis`. A batch the axis does not divide runs
+      unsharded on the mesh's first device, as the JAX package's does
+      (counted in `unsharded_steps`).
     - "streams": B independent handlers (pipelined when the config says
       so) whose dispatches interleave on the device queue; for batches the
-      batched step cannot express (a different config per stream).
+      batched step cannot express (a different config per stream). It
+      takes no mesh.
 
-    `mesh=` and `axis=` (the batch sharded over the devices of a mesh) are
-    multi-device work: a mesh raises NotImplementedError. The camera must
-    be a PinholeCamera.
+    With a mesh, `device` is None or the mesh's first device. The camera
+    must be a PinholeCamera.
     """
 
     def __init__(self, cam: PinholeCamera, cfg: Config, n_sequences: int,
                  mesh=None, axis: str = "seq", mode: str = "auto",
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchedVO over a device mesh is multi-device work (ROADMAP "
-                "A19) and is not ported")
         if mode == "auto":
             mode = "vmap"
         if mode not in ("vmap", "streams"):
             raise ValueError(f"mode {mode!r}: 'auto', 'vmap' or 'streams'")
+        if mesh is not None:
+            if mode == "streams":
+                raise ValueError("mode 'streams' takes no mesh: the batch "
+                                 "splits over a mesh in mode 'vmap'")
+            if axis not in mesh.axis_names:
+                raise ValueError(f"mesh axes {mesh.axis_names} have no axis "
+                                 f"{axis!r}")
+            mesh.check_spans(axis)
+            first = mesh.local_devices[0]
+            if device is not None and mesh_mod.normalize_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {first}")
+            device = first
+        self.mesh = mesh
+        self.axis = axis
+        self.unsharded_steps = 0
         self.device = resolve_device(device)
         self.vos = [FrameHandlerMono(cam, cfg, device=self.device)
                     for _ in range(n_sequences)]
@@ -141,8 +165,8 @@ class BatchedVO:
         if self._seeds_idx is None:
             return
         for k, i in enumerate(self._seeds_idx):
-            self.vos[i].pt_seeds = _stack_row_get(self._pt_stack, k)
-            self.vos[i].ln_seeds = _stack_row_get(self._ln_stack, k)
+            self.vos[i].pt_seeds = self._seq_row(self._pt_stack, k)
+            self.vos[i].ln_seeds = self._seq_row(self._ln_stack, k)
         self._seeds_idx = None
         self._pt_stack = None
         self._ln_stack = None
@@ -155,14 +179,20 @@ class BatchedVO:
         self._ln_stack = fused.stack_trees([self.vos[i].ln_seeds for i in idx])
         self._seeds_idx = tuple(idx)
 
+    def _seq_row(self, stack, k):
+        """Sequence k's row of a stacked (or sharded) table, on the
+        handlers' device."""
+        return mesh_mod.tree_map(lambda a: a.to(self.device),
+                                 mesh_mod.row(stack, k))
+
     def _install_seed_hooks(self, vo: FrameHandlerMono, k: int):
         def get():
-            return (_stack_row_get(self._pt_stack, k),
-                    _stack_row_get(self._ln_stack, k))
+            return (self._seq_row(self._pt_stack, k),
+                    self._seq_row(self._ln_stack, k))
 
         def set_(pt, ln):
-            self._pt_stack = _stack_row_set(self._pt_stack, k, pt)
-            self._ln_stack = _stack_row_set(self._ln_stack, k, ln)
+            self._pt_stack = mesh_mod.set_row(self._pt_stack, k, pt)
+            self._ln_stack = mesh_mod.set_row(self._ln_stack, k, ln)
 
         vo._get_seed_tables = get
         vo._set_seed_tables = set_
@@ -211,15 +241,27 @@ class BatchedVO:
 
     def _new_frames(self, default_idx, pyr_b, timestamp):
         """Empty FrameStates of this step, each holding its sequence's
-        views into the stacked pyramid."""
+        views into the stacked pyramid (a copy on the handlers' device of a
+        shard's rows on another device)."""
         frames = []
         for k, i in enumerate(default_idx):
             vo = self.vos[i]
             last = vo.last_frame
             frames.append(FrameState.empty(
-                vo.cfg, vo.frame_id, timestamp, [lv[k] for lv in pyr_b],
+                vo.cfg, vo.frame_id, timestamp,
+                [lv.to(self.device) for lv in mesh_mod.row(pyr_b, k)],
                 last.R_f_w.copy(), last.t_f_w.copy()))
         return frames
+
+    def _mesh_for(self, default_idx):
+        """The mesh, when its axis divides the batch; else None (the step
+        runs unsharded on the first device, counted)."""
+        if self.mesh is None:
+            return None
+        if len(default_idx) % self.mesh.shape[self.axis] == 0:
+            return self.mesh
+        self.unsharded_steps += 1
+        return None
 
     def _full_step(self, default_idx, imgs, timestamp, emit_next: bool):
         """The batched step from host tables and full map uploads (the sync
@@ -240,6 +282,7 @@ class BatchedVO:
             self._kf_atlas(default_idx), blobs, mts,
             self._bc_fid(default_idx), self._pt_stack, self._ln_stack,
             cam.fx, cam.fy, cam.cx, cam.cy, emit_next=emit_next,
+            mesh=self._mesh_for(default_idx), mesh_axis=self.axis,
             **self._batch_kwargs(default_idx))
         return step, frames
 
@@ -265,8 +308,8 @@ class BatchedVO:
         self._pt_stack = step.pt_seeds
         self._ln_stack = step.ln_seeds
         # one fetch: every sequence's results and seed convergence
-        res_f, pt_conv_b, ln_conv_b = fused.fetch(
-            (fused.fetch_view(step.fused), step.pt_conv, step.ln_conv))
+        res_f, pt_conv_b, ln_conv_b = mesh_mod.unshard(
+            fused.fetch(_fetch_parts(step)))
         results = [None] * len(self.vos)
         for k, i in enumerate(default_idx):
             vo = self.vos[i]
@@ -335,7 +378,8 @@ class BatchedVO:
                 self._bq[-1][2].next, self._mt_stack, self._dev(deltas),
                 self._pt_stack, self._ln_stack, cam.fx, cam.fy, cam.cx,
                 cam.cy, n_levels=self.vos[default_idx[0]].n_levels,
-                evict_width=self._ne, **kw)
+                evict_width=self._ne, mesh=self._mesh_for(default_idx),
+                mesh_axis=self.axis, **kw)
             frames = self._new_frames(default_idx, step.next.pyr, timestamp)
         self._mt_stack = step.mt
         self._pt_stack = step.pt_seeds
@@ -462,8 +506,7 @@ class BatchedVO:
         ba_plain, ba_groups, ba_routes = self._route_handles(
             [h for _, (h, _) in pend_ba])
         flat, meta = fused.flatpack((
-            [(fused.fetch_view(s.fused), s.pt_conv, s.ln_conv)
-             for _, _, s in take],
+            [_fetch_parts(s) for _, _, s in take],
             plain, det_groups, ba_plain, ba_groups))
         self._bfetch_q.append(
             ([(didx, frames) for didx, frames, _ in take], pend, routes,
@@ -481,6 +524,7 @@ class BatchedVO:
              meta) = self._bfetch_q.pop(0)
             got, plain_got, groups_got, ba_plain_got, ba_groups_got = \
                 fused.flatunpack(handle.result(), meta)
+            got = mesh_mod.unshard(got)
             ba_got = self._resolve_routes(ba_routes, ba_plain_got,
                                           ba_groups_got)
             for (i, (_, bmeta)), (kf_R, kf_t, lm_pos) in zip(pend_ba, ba_got):
@@ -570,7 +614,7 @@ class BatchedVO:
                 mt = fused.map_tables_from_state(m)
                 m.mt_mark_clean()
             else:
-                mt = _stack_row_get(self._mt_stack, k)
+                mt = self._seq_row(self._mt_stack, k)
             while m.mt_dirty_pending():
                 mt = fused.apply_mt_deltas(mt, self._dev(m.pack_mt_deltas(
                     fused.MT_DELTA_DP, fused.MT_DELTA_DL, fused.MT_DELTA_OP,

@@ -15,7 +15,12 @@ frame's align inputs (`build_next_inputs`) and its map tables as a carry;
 the next step (`track_frame_step_tables`) takes a raw image, builds its
 pyramid, applies the host's delta blob to the carry (`apply_mt_deltas`)
 and runs. A fetch is one device-side concatenation (`flatpack`) and one
-asynchronous copy into pinned host memory (`submit_fetch`).
+asynchronous copy into pinned host memory (`submit_fetch`): one of each per
+device when the leaves lie on several.
+
+With a mesh (`parallel/mesh.py`) the batched step lists split the batch
+over one of its axes and run once per shard (`_shard_mapped_step`); their
+result is the Shards of the per-shard results.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ from plsvo_torch.image import build_pyramid
 from plsvo_torch.indexing import (flat_rows, nonzero_padded, scatter_drop,
                                   take, top_k_stable)
 from plsvo_torch.ops import pose_opt, sparse_align, struct_opt
+from plsvo_torch.parallel.mesh import Shards, on_device, split_rows
+from plsvo_torch.parallel.mesh import leaves as _leaves
+from plsvo_torch.parallel.mesh import tree_map as _tree_map
 from plsvo_torch.pipeline import reprojector
 
 CONV_BUDGET = 64  # converged-seed reports per frame
@@ -650,17 +658,6 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
                           mt=apply_struct_to_mt(mt, res))
 
 
-def _tree_map(fn, tree):
-    """fn over every tensor of a tree of tuples, lists and NamedTuples
-    (None and other leaves pass through)."""
-    if torch.is_tensor(tree):
-        return fn(tree)
-    if isinstance(tree, (tuple, list)):
-        vals = [_tree_map(fn, t) for t in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
-    return tree
-
-
 def stack_trees(trees):
     """One tree whose tensors stack the given same-shaped trees' along a new
     leading axis."""
@@ -714,20 +711,64 @@ def _step_from_blob(last_pyr, cur_pyr, kf_flat, blob, mt, pt_seeds, ln_seeds,
 
 def track_frame_step_list(last_pyrs, cur_pyr, kf_flat, blobs, mts,
                           bc_fid: torch.Tensor, pt_seeds, ln_seeds, fx, fy,
-                          cx, cy, *, specs, **kw) -> FullStepResult:
+                          cx, cy, *, specs, mesh=None, mesh_axis: str = "seq",
+                          **kw) -> FullStepResult:
     """The tracked-frame step of B sequences at once (the JAX package's
     vmapped `track_frame_step_list`): the per-sequence last pyramids, blobs
     and map tables are stacked here; cur_pyr is the stacked pyramid of the
     new images (levels (B, h, w)), kf_flat the stacked keyframe atlas
     (flat (B, H, K*Wa)), the seed tables are stacked already (they stay
     stacked across frames), bc_fid (B, 2) holds each sequence's
-    [batch_counter, frame_id]. Every result carries the leading B."""
-    return _step_from_blob(
-        [torch.stack([p[lv] for p in last_pyrs]) for lv in range(len(cur_pyr))],
-        list(cur_pyr), kf_flat, torch.stack(list(blobs)),
-        stack_trees(list(mts)), pt_seeds,
-        ln_seeds, bc_fid[:, 0], fx, fy, cx, cy, specs=specs,
-        frame_id=bc_fid[:, 1], **kw)
+    [batch_counter, frame_id]. Every result carries the leading B.
+
+    With a mesh the batch splits over `mesh_axis` (`_shard_mapped_step`):
+    the result is the Shards of the per-shard results, and the seed tables
+    may be the previous sharded step's Shards."""
+    last_pyr = [torch.stack([p[lv] for p in last_pyrs])
+                for lv in range(len(cur_pyr))]
+    blob, mt = torch.stack(list(blobs)), stack_trees(list(mts))
+
+    def step(last_pyr, cur_pyr, flat, blob, mt, bcf, pt_seeds, ln_seeds,
+             atlas):
+        return _step_from_blob(
+            last_pyr, cur_pyr, atlas._replace(flat=flat), blob, mt, pt_seeds,
+            ln_seeds, bcf[:, 0], fx, fy, cx, cy, specs=specs,
+            frame_id=bcf[:, 1], **kw)
+
+    host_args = (last_pyr, list(cur_pyr), kf_flat.flat, blob, mt, bc_fid)
+    carries = (pt_seeds, ln_seeds)
+    if mesh is None:
+        return step(*host_args, *carries, kf_flat)
+    return _shard_mapped_step(step, mesh, mesh_axis, host_args, carries,
+                              kf_flat._replace(flat=None))
+
+
+def _shard_mapped_step(step, mesh, mesh_axis, host_args, carries, shared):
+    """Run the batched step once per shard of `mesh_axis`, with no
+    communication (the JAX package's shard_map of the vmapped step).
+
+    - host_args (trees whose tensors carry the leading B: the host uploads
+      of this step) are replicated: each shard slices its own rows and
+      moves them to its device.
+    - carries (the seed tables, and in pipelined mode NextFrameInputs and
+      the map carry) are the previous sharded step's Shards, which stay on
+      their shards' devices from one step to the next, or stacked trees,
+      split like host_args.
+    - shared (the keyframe atlas's unbatched layout) goes whole to every
+      shard.
+    Every GN loop's stop test stays within its shard (a stop test over the
+    whole batch would be a cross-device reduction per iteration), and each
+    K2 call site launches once per shard. Returns the Shards of the
+    per-shard results."""
+    host = split_rows(host_args, mesh, mesh_axis)
+    carries = [c if isinstance(c, Shards) else split_rows(c, mesh, mesh_axis)
+               for c in carries]
+    out = Shards()
+    for s, dev in enumerate(mesh.local_devices):
+        with on_device(dev):
+            out.append(step(*host[s], *[c[s] for c in carries],
+                            _tree_map(lambda a: a.to(dev), shared)))
+    return out
 
 
 def _step_tables(cur_img, kf_flat, nxt: NextFrameInputs, mt: MapTables,
@@ -767,17 +808,28 @@ def track_frame_step_tables_list(cur_imgs, kf_flat, bc_fid: torch.Tensor,
                                  nxt: NextFrameInputs, mt: MapTables,
                                  mt_deltas, pt_seeds, ln_seeds, fx, fy, cx,
                                  cy, *, n_levels: int,
-                                 evict_width: int = MT_DELTA_NE,
+                                 evict_width: int = MT_DELTA_NE, mesh=None,
+                                 mesh_axis: str = "seq",
                                  **kw) -> FullStepResult:
     """The pipelined step of B sequences at once (the JAX package's
     `track_frame_step_tables_list`): the raw images (B, H, W) as one
     upload, bc_fid (B, 2) [batch_counter, frame_id], the previous batched
     step's NextFrameInputs and map carry, and the (B, L) delta blobs as one
-    upload; every leaf carries the leading B."""
-    return _step_tables(cur_imgs, kf_flat, nxt, mt, pt_seeds, ln_seeds,
-                        bc_fid[:, 0], fx, fy, cx, cy, n_levels=n_levels,
-                        frame_id=bc_fid[:, 1], mt_delta=mt_deltas,
-                        evict_width=evict_width, **kw)
+    upload; every leaf carries the leading B. With a mesh, split over
+    `mesh_axis` as track_frame_step_list is: the previous sharded step's
+    NextFrameInputs, map carry and seed tables stay on their shards."""
+    def step(img, flat, bcf, delta, nxt, mt, pt_seeds, ln_seeds, atlas):
+        return _step_tables(img, atlas._replace(flat=flat), nxt, mt,
+                            pt_seeds, ln_seeds, bcf[:, 0], fx, fy, cx, cy,
+                            n_levels=n_levels, frame_id=bcf[:, 1],
+                            mt_delta=delta, evict_width=evict_width, **kw)
+
+    host_args = (cur_imgs, kf_flat.flat, bc_fid, mt_deltas)
+    carries = (nxt, mt, pt_seeds, ln_seeds)
+    if mesh is None:
+        return step(*host_args, *carries, kf_flat)
+    return _shard_mapped_step(step, mesh, mesh_axis, host_args, carries,
+                              kf_flat._replace(flat=None))
 
 
 # ---------------------------------------------------------------------------
@@ -802,14 +854,6 @@ def fetch_view(res: FusedResult) -> FusedResult:
         getattr(res, k).shape[:-2] + (0,)) for k in _FETCH_DROP})
 
 
-def _leaves(tree):
-    if tree is None:
-        return []
-    if torch.is_tensor(tree):
-        return [tree]
-    return [x for t in tree for x in _leaves(t)]
-
-
 _LEAF = object()
 
 
@@ -824,47 +868,64 @@ def _rebuild(tree, it):
 
 def flatpack(tree):
     """(flat f32 device vector, meta) of a tree (tuples, lists and
-    NamedTuples) of tensors."""
+    NamedTuples) of tensors. Leaves on several devices (the shards of a
+    mesh) pack into one vector per device, in order of first appearance:
+    a list of vectors, whose host copies concatenated are what flatunpack
+    reads."""
     leaves = _leaves(tree)
+    devs = list(dict.fromkeys(x.device for x in leaves))
+    order = sorted(range(len(leaves)), key=lambda i: devs.index(
+        leaves[i].device)) if len(devs) > 1 else None
     meta = (tuple((tuple(x.shape), x.dtype) for x in leaves),
-            _rebuild(tree, iter([_LEAF] * len(leaves))))
+            _rebuild(tree, iter([_LEAF] * len(leaves))), order)
     if not leaves:
         return torch.zeros(0), meta
+    if order is not None:
+        return [torch.cat([x.reshape(-1).to(torch.float32) for x in leaves
+                           if x.device == d]) for d in devs], meta
     return torch.cat([x.reshape(-1).to(torch.float32) for x in leaves]), meta
 
 
 class FetchHandle:
     """A fetch in flight; result() waits for its copy and returns numpy.
-    Holds the device vector and the pinned buffer until then."""
+    Holds the device vectors and the pinned buffers until then (one copy
+    per device for flatpack's list of vectors)."""
 
-    def __init__(self, flat: torch.Tensor):
-        self._flat = flat
-        self._event = None
-        if flat.device.type == "cuda":
-            self._buf = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            self._buf.copy_(flat, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._buf = flat
+    def __init__(self, flat):
+        self._flats = list(flat) if isinstance(flat, list) else [flat]
+        self._bufs, self._events = [], []
+        for f in self._flats:
+            if f.device.type == "cuda":
+                with torch.cuda.device(f.device):
+                    buf = torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+                    buf.copy_(f, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                self._events.append(event)
+            else:
+                buf = f
+            self._bufs.append(buf)
 
     def result(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = self._flat = None
-        return self._buf.numpy()
+        for event in self._events:
+            event.synchronize()
+        self._events = self._flats = []
+        if len(self._bufs) == 1:
+            return self._bufs[0].numpy()
+        return np.concatenate([b.numpy() for b in self._bufs])
 
 
-def submit_fetch(flat: torch.Tensor) -> FetchHandle:
+def submit_fetch(flat) -> FetchHandle:
     return FetchHandle(flat)
 
 
 def flatunpack(flat_np: np.ndarray, meta):
     """The tree of flatpack's meta with numpy leaves cut from flat_np."""
-    specs, skeleton = meta
-    out = []
+    specs, skeleton, order = meta
+    out = [None] * len(specs)
     off = 0
-    for shape, dtype in specs:
+    for i in order if order is not None else range(len(specs)):
+        shape, dtype = specs[i]
         n = int(np.prod(shape)) if shape else 1
         a = flat_np[off:off + n].reshape(shape)
         off += n
@@ -872,7 +933,7 @@ def flatunpack(flat_np: np.ndarray, meta):
             a = a > 0.5
         elif not dtype.is_floating_point:
             a = np.rint(a).astype(str(dtype).replace("torch.", ""))
-        out.append(a)
+        out[i] = a
     return _rebuild(skeleton, iter(out))
 
 

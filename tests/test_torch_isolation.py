@@ -1,7 +1,7 @@
 """The port stands alone: it (with chip_smoke.py and bench_torch.py)
-imports neither JAX nor the JAX package, its entry points (BatchedVO
-included) run on the card unless told otherwise, and a CUDA tensor never
-falls back to the plain twins."""
+imports neither JAX nor the JAX package (nor does its multi-device layer
+alone), its entry points (BatchedVO included) run on the card unless told
+otherwise, and a CUDA tensor never falls back to the plain twins."""
 import re
 import subprocess
 import sys
@@ -53,10 +53,12 @@ for c in (points, lines, pipelined):
     n.append(r.n_pt_matches)
 # the lines config adds KLT targets along the detected segments
 assert n[1] > n[0] and n[2] == n[1], n
+from plsvo_torch.parallel.mesh import Mesh
 from plsvo_torch.parallel.multi_vo import BatchedVO
-for mode in ("vmap", "streams"):
-    rs = BatchedVO(cam, pipelined, 2, mode=mode, device="cpu").add_images(
-        [img, img], 0.0)
+for mode, mesh in (("vmap", None), ("streams", None),
+                   ("vmap", Mesh(["cpu"] * 2, ("seq",)))):
+    rs = BatchedVO(cam, pipelined, 2, mode=mode, mesh=mesh,
+                   device="cpu").add_images([img, img], 0.0)
     assert [(r.stage, r.quality) for r in rs] == [("first", "good")] * 2, rs
 import importlib.util
 spec = importlib.util.spec_from_file_location("bench_torch", "bench_torch.py")
@@ -81,6 +83,23 @@ def test_no_source_imports_jax():
     assert len(files) > 20
     offenders = [str(p) for p in files if pat.search(p.read_text())]
     assert offenders == []
+
+
+@pytest.mark.parametrize("module", [
+    "plsvo_torch.parallel.mesh", "plsvo_torch.parallel.distributed",
+    "plsvo_torch.parallel.dryrun", "plsvo_torch.parallel.batched",
+    "plsvo_torch.parallel.ba", "plsvo_torch.parallel.multi_vo"])
+def test_multi_device_modules_import_no_jax(module):
+    """The multi-device layer alone in a fresh process pulls in neither JAX
+    nor the JAX package."""
+    code = (f"import sys, {module}; print('BAD', sorted(k for k in "
+            "sys.modules if k.split('.')[0] in ('jax', 'jaxlib', "
+            "'plsvo_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         stdin=subprocess.DEVNULL)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_entry_point_defaults_to_cuda(monkeypatch):
@@ -227,17 +246,22 @@ def test_unported_config_raises(make_cam, match):
 
 
 @pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(mesh=object()), "A19", id="mesh"),
+    pytest.param(dict(mesh="2 cpu shards", mode="streams"), "streams",
+                 id="mesh"),
     pytest.param(dict(cam=_AtanCamera()), "camera model", id="non_pinhole"),
     pytest.param(dict(mode="sharded"), "mode", id="mode")])
 def test_batched_vo_unported_options_raise(kw, match):
-    """BatchedVO over a device mesh waits for the multi-device work; other
-    camera models and modes raise too."""
+    """Options BatchedVO does not take raise: a mesh in streams mode (the
+    batch splits over a mesh in vmap mode only, as in the JAX package),
+    other camera models and other modes."""
+    from plsvo_torch.parallel.mesh import Mesh
     from plsvo_torch.parallel.multi_vo import BatchedVO
 
     args = dict(cam=PinholeCamera.create(320, 240, 250.0, 250.0, 160.0, 120.0),
                 cfg=fast_config(), n_sequences=2, device="cpu")
     args.update(kw)
+    if args.get("mesh") == "2 cpu shards":
+        args["mesh"] = Mesh(["cpu"] * 2, ("seq",))
     with pytest.raises((NotImplementedError, ValueError), match=match):
         BatchedVO(**args)
 
