@@ -107,6 +107,24 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                equal), and NCCL brought up at world size 1 with one
                all_reduce (the workers are this script with
                --mesh-ba-worker / --mesh-nccl-worker)
+  6f. api     — the JAX package's functions off the tracking path
+               (phase_api), on copies of the lines run's handler at its
+               last frame (a checkpoint loaded on the card and on the CPU)
+               and the next frame: reproject_segments (retry on) with the
+               map's tables, card vs CPU (it refines through align2d_atlas,
+               as the JAX function: no K2 launch); find_match_direct,
+               epipolar_search_zmssd, epipolar_search_zmssd_atlas and
+               align1d_atlas on the map's point anchors, card vs CPU at the
+               tests' bars; the staged seed path (_update_seeds, then
+               _harvest_seeds) through update_point_seeds_bucketed and
+               update_line_seeds_bucketed at the handler's bucket of its
+               live seeds and, on a second copy, the next power of two,
+               with API_CONVERGE point seeds made to converge: the two
+               buckets' tables equal, every candidate landmark finite and
+               on its seed's bearing; one tracked frame under
+               utils.profiling.device_trace, its Chrome trace holding a
+               mixed_align_kernel event. Its K2 launches (call site
+               "seeds_bucketed") go to phase 7
   6d. soaks   — tests/test_soak.py with the port alone, pipelined: 310
                frames at 320x240, fast_config() (8 keyframe slots), the
                orbit; at depth 12 without the blackout, and at depth 4 with
@@ -118,7 +136,8 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                clean, the synced carry equal to the mirror, at least one
                keyframe eviction
   7. K2      — the mixed-align GN kernel vs its plain twin on the inputs of
-               every launch of the five capture runs: verdicts equal, uv
+               every launch of the capture runs (5, 6, 6b, 6e and 6f):
+               verdicts equal, uv
                within 2e-3 px and mean_diff within 2e-2; at most
                K2_APART_MAX rows of a launch may instead stop one update
                apart, where the step at which the two sides part lies at
@@ -140,8 +159,11 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                frame and per stage), host syncs, top device ops
   10. timing  — K1's three-level launch (device time, per-call time, bound)
                and each level alone; K2 at the reprojection's N=384 launch
-               with the most valid rows (device, per-call, bound) and its
-               device time at every call site and N of the three runs;
+               with the most valid rows (device, per-call, bound); at
+               every call site and N of the three sync runs, the batched
+               and mesh runs and phase 6f: the launch count, the launch
+               with the most valid rows (device, per-call, plain, bound)
+               and the median and max device time over the launches;
                detect_fast_grid's, detect_segments_tiled's,
                align_mixed_atlas's and align2d_atlas's per-call times
   11. report — one JSON line per the kernel report format, the card line,
@@ -241,12 +263,13 @@ def cuda_time_ms(fn, reps=30, inner=20, warmup=5):
     return float(np.median(times))
 
 
-def _device_records(calls, kernel_name, pad=32):
+def _device_records(calls, kernel_name, pad=256):
     """Durations (us) of the kernel named kernel_name, as torch.profiler
     records it on the card, for each call of `calls` in order. The last
-    call is run `pad` more times at the end, because the profiler can lose
-    the last few device records of a session; returns the records of
-    `calls` only, or fewer when more were lost."""
+    call is run `pad` more times at the end, because the profiler loses
+    the last device records of a session (late in the smoke 48-51 of
+    them, every session); returns the records of `calls` only, or fewer
+    when more were lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1948,8 +1971,11 @@ def phase_soak(device, depth, blackout, ransac_draws=None):
 # share it), a [card, CPU] mesh, sharded BA at scale and torch.distributed.
 # ---------------------------------------------------------------------------
 
-MESH_FRAMES = 32  # 6b's first frames, with the counts set to 0 around them
-MESH_PROFILED = 4  # more batched steps under torch.profiler
+# 6b's first frames, with the counts set to 0 around them: the batch
+# engages at call 16 (the stagger and the bootstrap), so 24 calls hold 8
+# sharded steps
+MESH_FRAMES = 24
+MESH_PROFILED = 2  # more batched steps under torch.profiler
 BIG_BA = dict(K=96, L=50176, O=6)  # tests/test_ba_scale.py's full size
 
 
@@ -2359,6 +2385,350 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6f: the JAX package's functions off the tracking path, on copies of
+# the lines run's handler at its last frame.
+# ---------------------------------------------------------------------------
+
+API_CONVERGE = 5  # point seeds given a tiny variance, so that they converge
+API_SITES = ("reproject_segments", "seeds_bucketed")
+
+
+def _cpu(tree):
+    from plsvo_torch.parallel.mesh import tree_map
+
+    return tree_map(lambda a: a.cpu(), tree)
+
+
+def _api_check(name, out_k, out_c, verdict, uv, uv_atol, extra=()):
+    """A function's card result against its CPU result on the same inputs:
+    the verdict field equal, the uv field within uv_atol where it holds,
+    each (field, atol, rtol) of extra within its bars there. Returns the
+    number of rows where the verdict holds."""
+    k, c = _cpu(out_k), out_c
+    vk, vc = getattr(k, verdict), getattr(c, verdict)
+    if not _equal(vk, vc):
+        fail(f"api: {name}: {verdict} differs card vs CPU in "
+             f"{int((vk != vc).sum())} rows")
+    m = vc.bool()
+    errs = [f"{uv} {_max_err(getattr(k, uv)[m], getattr(c, uv)[m]):.3e}"]
+    if _max_err(getattr(k, uv)[m], getattr(c, uv)[m]) > uv_atol:
+        fail(f"api: {name}: {uv} card vs CPU beyond {uv_atol}: {errs[0]}")
+    for field, atol, rtol in extra:
+        a, b = getattr(k, field), getattr(c, field)
+        sel = m & b.isfinite() if field == "zmssd" else m
+        if field == "zmssd" and not _equal(a.isinf(), b.isinf()):
+            fail(f"api: {name}: inf scores differ card vs CPU")
+        bad = (a[sel] - b[sel]).abs() > atol + rtol * b[sel].abs()
+        errs.append(f"{field} {_max_err(a[sel], b[sel]):.3e}")
+        if bool(bad.any()):
+            fail(f"api: {name}: {field} card vs CPU beyond atol {atol} / "
+                 f"rtol {rtol} in {int(bad.sum())} rows")
+    print(f"api: {name} card vs CPU: {verdict} equal ({int(m.sum())} of "
+          f"{len(m)} rows), " + ", ".join(errs), flush=True)
+    return int(m.sum())
+
+
+def _equal(a, b):
+    import torch
+
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def _max_err(a, b):
+    return float((a.cpu() - b.cpu()).abs().max()) if a.numel() else 0.0
+
+
+def _api_inputs(vo, cur_pyr, n):
+    """Direct-match and epipolar inputs from the handler's point landmarks:
+    each anchor (keyframe, uv, bearing, level), its range, the relative pose
+    of the current frame (the last frame's pose as the prior), its
+    projection there, its bordered anchor patch, and the rays of 0.75 and
+    1.3 times its range."""
+    import torch
+
+    from plsvo_torch.ops import feature_align as fa
+    from plsvo_torch.ops import matcher as mt
+
+    m, dev = vo.map, vo.device
+    R_c, t_c = vo.last_frame.R_f_w, vo.last_frame.t_f_w
+    rows = np.where((m.pt_status > 0)
+                    & m.kf_occupied[np.maximum(m.pt_anchor_kf, 0)]
+                    & (m.pt_anchor_kf >= 0))[0][:256]
+    kf = m.pt_anchor_kf[rows]
+    Rk, tk = m.kf_R[kf], m.kf_t[kf]
+    centre = -np.einsum("nji,nj->ni", Rk, tk)
+    depth = np.linalg.norm(m.pt_pos[rows] - centre, axis=-1)
+    R_cr = np.einsum("ij,nkj->nik", R_c, Rk)
+    t_cr = t_c[None] - np.einsum("nij,nj->ni", R_cr, tk)
+    xyz = m.pt_pos[rows] @ R_c.T + t_c
+    z = np.maximum(xyz[:, 2], 1e-6)
+    uv_cur = np.stack([vo._fx * xyz[:, 0] / z + vo._cx,
+                       vo._fy * xyz[:, 1] / z + vo._cy], -1)
+    H, W = cur_pyr[0].shape
+    valid = ((xyz[:, 2] > 0.1) & (uv_cur[:, 0] > 8) & (uv_cur[:, 0] < W - 8)
+             & (uv_cur[:, 1] > 8) & (uv_cur[:, 1] < H - 8))
+    f = m.pt_anchor_f[rows]
+
+    def ray(s):
+        return np.einsum("nij,nj->ni", R_cr, f * (depth * s)[:, None]) + t_cr
+
+    def T(a, dt=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    ref_stack = list(m.kf_pyr[:n])
+    N = len(rows)
+    lvl = T(m.pt_anchor_level[rows], torch.int32)
+    eye = torch.eye(2, device=dev).expand(N, 2, 2)
+    pb, pok = mt.warp_patches_affine(ref_stack, T(kf, torch.int32),
+                                     T(m.pt_anchor_uv[rows]), lvl, eye,
+                                     torch.zeros_like(lvl))
+    ref, dx, dy = fa.ref_patch_gradients(pb, 8)
+    f_A, f_B = ray(1.3), ray(0.75)
+    pA = f_A[:, :2] / f_A[:, 2:3]
+    pB = f_B[:, :2] / f_B[:, 2:3]
+    return dict(ref_stack=ref_stack, kf=T(kf, torch.int32),
+                uv_ref=T(m.pt_anchor_uv[rows]), f_ref=T(f), depth=T(depth),
+                level=lvl, R=T(R_cr), t=T(t_cr), uv_cur=T(uv_cur),
+                valid=T(valid, torch.bool) & pok, ref=ref, dx=dx, dy=dy,
+                f_A=T(f_A), f_B=T(f_B), d_epi=T(pB - pA))
+
+
+def phase_api(vo_lines, imgs, n_next, device):
+    """Phase 6f: copies of the lines run's handler at its last frame (a
+    checkpoint loaded on the card and on the CPU), the next frame's image:
+    (a) reproject_segments (retry on) with the map's tables, card vs CPU;
+    (b) find_match_direct, epipolar_search_zmssd, epipolar_search_zmssd_atlas
+    and align1d_atlas on the map's point anchors, card vs CPU at the tests'
+    bars; (c) the staged seed path, _update_seeds then _harvest_seeds, at
+    the handler's bucket of its live seeds (update_*_seeds_bucketed) with
+    API_CONVERGE point seeds made to converge, and on a second copy at the
+    next power of two: every candidate landmark finite and on its seed's
+    bearing, the two bucket sizes' tables equal; (d) one tracked frame under
+    utils.profiling.device_trace, whose Chrome trace must hold a K2 event.
+    Every K2 launch of (a) and (c) is captured for phase 7, by call site."""
+    import shutil
+    import tempfile
+
+    from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="api_", dir=OUT_DIR)
+    try:
+        path = os.path.join(tmp, "lines.npz")
+        checkpoint.save_state(vo_lines, path)
+        vo = checkpoint.load_state(path, device=device)
+        vo_c = checkpoint.load_state(path, device="cpu")
+        captured, site = [], ["other"]
+
+        def k2_capture(args, kwargs):
+            if site[0] != "other":
+                captured.append(([a.clone() for a in args], dict(kwargs),
+                                 site[0]))
+
+        undo = _patched([(ma, "capture", k2_capture)])
+        try:
+            out = _api_calls(vo, vo_c, imgs, n_next, device, site, tmp)
+        finally:
+            undo()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = out.pop("launches")
+    shapes = {s: sorted({c[0][0].shape[0] for c in captured if c[2] == s})
+              for s in API_SITES}
+    if launches != {s: sum(c[2] == s for c in captured) for s in API_SITES}:
+        fail(f"api: K2's launch count {launches} by call site differs from "
+             "its captured launches")
+    if launches["seeds_bucketed"] < 2:
+        fail(f"api: K2 launched {launches} times by call site; the bucketed "
+             "seed updates must launch it at both bucket sizes")
+    out.update(kind="api", captured=captured, launches_api=launches,
+               shape_api=shapes, seconds=time.perf_counter() - t_phase)
+    print(f"api: K2 launches by call site {launches}, N {shapes} "
+          f"(reproject_segments refines through align2d_atlas, as the JAX "
+          f"function does: no K2 launch); phase 6f took "
+          f"{out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def _api_calls(vo, vo_c, imgs, n_next, device, site, tmp):
+    """phase_api's calls and gates on the card copy vo and the CPU copy
+    vo_c of the handler (checkpoint in tmp); site labels K2 launches."""
+    import torch
+
+    from plsvo_torch.image import build_pyramid, pack_pyramid_atlas
+    from plsvo_torch.ops import feature_align as fa
+    from plsvo_torch.ops import matcher as mt
+    from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.pipeline import fused, reprojector
+    from plsvo_torch.pipeline.frame_handler import STAGE_DEFAULT
+    from plsvo_torch.pipeline.state import FrameState
+    from plsvo_torch.utils import checkpoint
+    from plsvo_torch.utils.profiling import device_trace
+
+    cfg = vo.cfg
+    n = cfg.pipeline.n_pyr_levels
+    cam = (vo._fx, vo._fy, vo._cx, vo._cy)
+    img = imgs[n_next]
+    cur_full = build_pyramid(img, vo.n_levels)
+    cur_pyr = cur_full[:n]
+    out = {}
+
+    # (a) reproject_segments with the map's line tables
+    def segs(h, pyr):
+        t = fused.map_tables_from_state(h.map)
+        R = torch.as_tensor(h.last_frame.R_f_w, device=h.device)
+        tt = torch.as_tensor(h.last_frame.t_f_w, device=h.device)
+        return reprojector.reproject_segments(
+            t.ln_spos, t.ln_epos, t.ln_status, t.ln_anchor_kf,
+            t.ln_anchor_suv, t.ln_anchor_euv, t.ln_anchor_sf, t.ln_anchor_ef,
+            t.ln_anchor_level, t.kf_R, t.kf_t, h.map.kf_atlas_flat(n), pyr, R,
+            tt, *cam, cell_size=cfg.pipeline.grid_size_segs,
+            max_out=cfg.caps.max_segs, retry=True)
+
+    launches = {}
+    ma.launches = 0
+    site[0] = "reproject_segments"
+    try:
+        rs = segs(vo, cur_pyr)
+    finally:
+        site[0] = "other"
+    launches["reproject_segments"] = ma.launches
+    rs_c = segs(vo_c, _cpu(cur_pyr))
+    for name in ("lm_idx", "selected", "matched", "level"):
+        if not _equal(getattr(rs, name), getattr(rs_c, name)):
+            fail(f"api: reproject_segments {name} differs card vs CPU")
+    mk = rs_c.matched
+    e_uv = max(_max_err(rs.s_uv[mk.to(device)], rs_c.s_uv[mk]),
+               _max_err(rs.e_uv[mk.to(device)], rs_c.e_uv[mk]))
+    if int(rs_c.n_attempts) <= 0 or e_uv > 2e-3:
+        fail(f"api: reproject_segments: {int(rs_c.n_attempts)} attempts, "
+             f"endpoints card vs CPU {e_uv} (atol 2e-3)")
+    print(f"api: reproject_segments (retry, N {rs.lm_idx.shape[0]} rows = "
+          f"{cfg.caps.max_segs} + {max(cfg.caps.max_segs // 8, 8)}): "
+          f"{int(rs_c.n_attempts)} attempts, {int(rs_c.n_matches)} matched "
+          f"({int(rs_c.selected[cfg.caps.max_segs:].sum())} runner-ups "
+          f"retried), equal card vs CPU, endpoints within {e_uv:.3e} px; K2 "
+          f"launches {launches['reproject_segments']}", flush=True)
+    out.update(seg_attempts=int(rs_c.n_attempts),
+               seg_matches=int(rs_c.n_matches))
+
+    # (b) the per-level matcher, the epipolar searches and align1d_atlas on
+    # the map's point anchors
+    inp = _api_inputs(vo, cur_pyr, n)
+    inp_c = {k: _cpu(v) for k, v in inp.items()}
+
+    def fmd(x, pyr):
+        return mt.find_match_direct(
+            x["ref_stack"], pyr, x["kf"], x["uv_ref"], x["f_ref"], x["depth"],
+            x["level"], x["R"], x["t"], x["uv_cur"], x["valid"], *cam,
+            max_level=n - 1)
+
+    def epi(x, pyr):
+        return mt.epipolar_search_zmssd(
+            pyr, x["ref"], x["f_A"], x["f_B"], x["level"], x["valid"], *cam)
+
+    def epi_atlas(x, pyr):
+        return mt.epipolar_search_zmssd_atlas(
+            *pack_pyramid_atlas(pyr), x["ref"], x["f_A"], x["f_B"],
+            x["level"], x["valid"], *cam)
+
+    def a1d(x, pyr):
+        sc = 1.0 / (1 << x["level"].long()).float()[:, None]
+        return fa.align1d_atlas(
+            *pack_pyramid_atlas(pyr), x["ref"], x["dx"], x["dy"],
+            x["uv_cur"] * sc, x["d_epi"], x["level"], x["valid"])
+
+    n_ok = {}
+    n_ok["find_match_direct"] = _api_check(
+        "find_match_direct", fmd(inp, cur_pyr), fmd(inp_c, _cpu(cur_pyr)),
+        "ok", "uv", 2e-3)
+    for name, fn in (("epipolar_search_zmssd", epi),
+                     ("epipolar_search_zmssd_atlas", epi_atlas)):
+        n_ok[name] = _api_check(name, fn(inp, cur_pyr), fn(inp_c,
+                                                           _cpu(cur_pyr)),
+                                "ok", "uv_level", 1e-3,
+                                extra=(("zmssd", 1e-3, 1e-4),))
+    n_ok["align1d_atlas"] = _api_check(
+        "align1d_atlas", a1d(inp, cur_pyr), a1d(inp_c, _cpu(cur_pyr)),
+        "converged", "uv", 2e-3, extra=(("mean_diff", 2e-2, 0.0),))
+    if min(n_ok.values()) <= 0:
+        fail(f"api: a card-vs-CPU comparison held on no row: {n_ok}")
+    out["n_ok"] = n_ok
+
+    # (c) the staged seed path at the handler's bucket and the next power
+    # of two (a second copy), API_CONVERGE point seeds made to converge
+    path = os.path.join(tmp, "lines.npz")
+    vo2 = checkpoint.load_state(path, device=device)
+    vo2._bucket = lambda k, cap: 2 * type(vo)._bucket(k, cap)
+    frame_id = vo.frame_id
+    pr = np.where(vo._seed_alive)[0][:API_CONVERGE]
+    if len(pr) < API_CONVERGE:
+        fail(f"api: {len(pr)} live point seeds, fewer than {API_CONVERGE}")
+    pt_before = vo.map.pt_status > 0
+    ma.launches = 0
+    for h in (vo, vo2):
+        h.pt_seeds = h.pt_seeds._replace(sigma2=h.pt_seeds.sigma2.index_fill(
+            0, torch.as_tensor(pr, device=device), 1e-12))
+        frame = FrameState.empty(cfg, frame_id, frame_id / 30.0, cur_full,
+                                 h.last_frame.R_f_w, h.last_frame.t_f_w)
+        site[0] = "seeds_bucketed"
+        try:
+            h._update_seeds(frame)
+        finally:
+            site[0] = "other"
+        h._harvest_seeds()
+    launches["seeds_bucketed"] = ma.launches
+    for a, b, what in ((vo.pt_seeds, vo2.pt_seeds, "point"),
+                       (vo.ln_seeds, vo2.ln_seeds, "line")):
+        if not _equal(a.alive, b.alive):
+            fail(f"api: {what} seeds alive differ between the two buckets")
+        for x, y in zip(a, b):
+            if x.is_floating_point() and not bool(torch.allclose(
+                    x, y, rtol=1e-4, atol=1e-6, equal_nan=True)):
+                fail(f"api: {what} seed tables differ between the two buckets")
+    m = vo.map
+    new = np.where((m.pt_status > 0) & ~pt_before)[0]
+    if len(new) < API_CONVERGE:
+        fail(f"api: the harvest made {len(new)} candidate points, fewer than "
+             f"the {API_CONVERGE} converged seeds")
+    worst = 0.0
+    for i in new:
+        k = m.pt_anchor_kf[i]
+        p = m.kf_R[k] @ m.pt_pos[i] + m.kf_t[k]
+        if not (np.isfinite(p).all() and p[2] > 0):
+            fail(f"api: candidate point {i} at {m.pt_pos[i]} is not finite "
+                 "and in front of its keyframe")
+        worst = max(worst, float(np.abs(p / np.linalg.norm(p)
+                                        - m.pt_anchor_f[i]).max()))
+    if worst > 1e-4:
+        fail(f"api: a candidate point lies {worst} off its seed's bearing")
+    print(f"api: _update_seeds + _harvest_seeds at buckets of "
+          f"{vo._bucket(int(vo._seed_alive.sum()), cfg.caps.max_seeds)} and "
+          f"its double: seed tables equal, {len(new)} candidate points made "
+          f"(finite, on their seeds' bearings within {worst:.2e}), "
+          f"seed_starved {vo.permon.logs.get('seed_starved')}", flush=True)
+    out.update(n_candidates=len(new), launches=launches)
+
+    # (d) one tracked frame under device_trace
+    with device_trace(os.path.join(tmp, "trace")) as prof:
+        r = vo.add_image(img, n_next / 30.0)
+    with open(prof.trace_path) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    size = os.path.getsize(prof.trace_path)
+    if r.stage != STAGE_DEFAULT or not any("mixed_align_kernel" in x
+                                           for x in names):
+        fail(f"api: the traced frame's stage {r.stage}; a mixed_align_kernel "
+             f"event in its trace: {any('mixed_align' in x for x in names)}")
+    print(f"api: device_trace of a tracked frame: {size / 1e6:.1f} MB Chrome "
+          f"trace with {len(names)} event names, mixed_align_kernel among "
+          "them", flush=True)
+    return out
+
+
 def phase_k1_batched(k1_inputs):
     """K1 at the batched detection's shapes: the largest captured batch of
     R x levels pyramid images, kernel (one launch per 32 images) against
@@ -2479,6 +2849,45 @@ def phase_profile(vo, imgs, first, n_win, base_ms):
             f"{k[:60]} {v / 1e3 / n:.3f}" for k, v in top), flush=True)
 
 
+def k2_site_timings(runs):
+    """K2's device time depends on the data (the warp leaves once its rows
+    are inactive): the captured launches of each (name, run) of runs,
+    replayed, by call site and N. Prints, per group, its launch count and
+    for the launch with the most valid rows its device, per-call, plain
+    and bound times, and the median and max device time over the group's
+    launches. Returns {(name, site, N): (median, max) device ms}."""
+    from plsvo_torch.ops import mixed_align as ma
+
+    k2_run = {}
+    for run, res in runs:
+        groups = {}
+        for c in res["captured"]:
+            groups.setdefault((c[2], c[0][0].shape[0]), []).append(c)
+        for (where, n), group in sorted(groups.items()):
+            # the launch of the group with the most valid rows
+            hard = max(range(len(group)),
+                       key=lambda i: int(group[i][0][12].sum()))
+            a, k, _ = group[hard]
+            f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
+            dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
+                                   for a, k, _ in group], "mixed_align_kernel")
+            d_hard = dev[hard]
+            b_ms, b_by = k2_bound_ms(a, k2_active_row_iters(a, k))
+            p_ms = cuda_time_ms(lambda: ma.mixed_align_plain(*a, **k), reps=3,
+                                inner=2)
+            k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
+            print(f"timing: K2 {run} run, {where} N={n}: {len(group)} "
+                  f"launches (captured); the one with the most valid rows "
+                  f"({int(a[12].sum())}): device {d_hard:.4f} ms, kernel "
+                  f"{cuda_time_ms(f2):.4f} ms per call, plain {p_ms:.4f} ms "
+                  f"per call, bound {b_ms:.6f} ms "
+                  f"({b_by}; {100 * b_ms / d_hard:.1f}% of its device "
+                  f"time); device over the launches: median "
+                  f"{k2_run[(run, where, n)][0]:.4f} ms, max "
+                  f"{k2_run[(run, where, n)][1]:.4f} ms", flush=True)
+    return k2_run
+
+
 def main():
     # the smoke drives one card: on a host with several, it sees the first
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -2532,7 +2941,9 @@ def main():
     spp = phase_pipelined(cam, imgs, gt, device, n_main, sl)
     sb8 = phase_batched(cam, imgs, gt, device, n_main)
     smesh = phase_mesh(cam, imgs, gt, device, sb8)
-    k2 = phase_k2([c + (r["kind"],) for r in (sl, sp, so, spp, sb8, smesh)
+    sapi = phase_api(sl["vo"], imgs, n_main, device)
+    k2 = phase_k2([c + (r["kind"],) for r in (sl, sp, so, spp, sb8, smesh,
+                                              sapi)
                    for c in r["captured"]])
     k1b = phase_k1_batched(sb8["k1_inputs"])
     sb = phase_ba(sl, device)
@@ -2582,33 +2993,9 @@ def main():
         print(f"timing: K1 {lvl.shape[0]}x{lvl.shape[1]} alone: kernel "
               f"{cuda_time_ms(f1):.4f} ms per call (device "
               f"{kernel_device_ms(f1, 'fast_score_kernel'):.4f} ms)", flush=True)
-    # K2's device time depends on the data (the warp leaves once its rows
-    # are inactive): every launch of the runs, replayed, by call site and N
-    k2_run = {}
-    for run, res in (("lines", sl), ("points", sp), ("lineonly", so)):
-        groups = {}
-        for c in res["captured"]:
-            groups.setdefault((c[2], c[0][0].shape[0]), []).append(c)
-        for (where, n), runs in sorted(groups.items()):
-            # the launch of the group with the most valid rows
-            hard = max(range(len(runs)), key=lambda i: int(runs[i][0][12].sum()))
-            a, k, _ = runs[hard]
-            f2 = lambda: ma.mixed_align_cuda(*a, **k)  # noqa: E731
-            dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
-                                   for a, k, _ in runs], "mixed_align_kernel")
-            b_ms, b_by = k2_bound_ms(a, k2_active_row_iters(a, k))
-            p_ms = cuda_time_ms(lambda: ma.mixed_align_plain(*a, **k), reps=3,
-                                inner=2)
-            k2_run[(run, where, n)] = (float(np.median(dev)), max(dev))
-            print(f"timing: K2 {run} run, {where} N={n}: {len(runs)} launches "
-                  f"(capture pass); the one with the most valid rows "
-                  f"({int(a[12].sum())}): device {dev[hard]:.4f} ms, kernel "
-                  f"{cuda_time_ms(f2):.4f} ms per call, plain {p_ms:.4f} ms "
-                  f"per call, bound {b_ms:.6f} ms "
-                  f"({b_by}; {100 * b_ms / dev[hard]:.1f}% of its device "
-                  f"time); device over the launches: median "
-                  f"{k2_run[(run, where, n)][0]:.4f} ms, max "
-                  f"{k2_run[(run, where, n)][1]:.4f} ms", flush=True)
+    k2_run = k2_site_timings((("lines", sl), ("points", sp),
+                              ("lineonly", so), ("batched", sb8),
+                              ("mesh", smesh), ("api", sapi)))
     det_ms = cuda_time_ms(lambda: detection.detect_fast_grid(
         pyr0, cell_size=25, score_threshold=20.0), reps=10, inner=5)
     seg_ms = cuda_time_ms(lambda: lines.detect_segments_tiled(
@@ -2644,20 +3031,6 @@ def main():
           f"valid rows) kernel {k2b_ms:.4f} ms per call (device {k2b_dev:.4f} "
           f"ms), plain {k2b_plain:.4f} ms, bound {k2b_bound:.6f} ms ({k2b_by}; "
           f"{100 * k2b_bound / k2b_dev:.1f}% of its device time)", flush=True)
-    for (where, n), cnt in sorted(sb8["k2_sites"].items()):
-        runs = [c for c in sb8["captured"]
-                if c[2] == where and c[0][0].shape[0] == n]
-        if n < BATCH * 48 or not runs:
-            continue
-        dev = calls_device_ms([lambda a=a, k=k: ma.mixed_align_cuda(*a, **k)
-                               for a, k, _ in runs[-6:]], "mixed_align_kernel")
-        a, k, _ = runs[-1]
-        p_ms = cuda_time_ms(lambda: ma.mixed_align_plain(*a, **k), reps=3,
-                            inner=1)
-        print(f"timing: K2 batched run, {where} N={n}: {cnt} launches; device "
-              f"over the last {len(dev)}: median {np.median(dev):.4f} ms, "
-              f"max {max(dev):.4f} ms; plain {p_ms:.4f} ms per call (the "
-              f"last launch's inputs)", flush=True)
 
     nf = sl["n_frames"]
     k2_uv = max(e[2] for e in k2.values())
@@ -2679,7 +3052,8 @@ def main():
     # of the card; "shape_mesh" K2's per-shard reprojection N), and the
     # "_batched" times are at that run's shapes (K1: the largest batched
     # keyframe detection; K2: the B x 384-row reprojection launch with the
-    # most valid rows).
+    # most valid rows); K2's "launches_api" counts phase 6f's launches by
+    # call site and "shape_api" their N.
     report = {"kernels": [
         {"name": "fast_score", "route": "cuda",
          "source": "plsvo_torch/csrc/fast_score.cu",
@@ -2724,7 +3098,9 @@ def main():
          "shape_mesh": [smesh["n_rep"]],
          "shape_batched": [n_k2b], "ms_batched": k2b_ms,
          "kernel_ms_batched": k2b_dev, "plain_ms_batched": k2b_plain,
-         "bound_ms_batched": k2b_bound, "bound_by_batched": k2b_by},
+         "bound_ms_batched": k2b_bound, "bound_by_batched": k2b_by,
+         "launches_api": sapi["launches_api"],
+         "shape_api": sapi["shape_api"]},
     ]}
     print(f"summary: lines run ATE {sl['ate']:.6f} m, per-frame ms median "
           f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f} (keyframe frames p90 "

@@ -178,3 +178,16 @@ class ATANCamera:
         return PinholeCamera.create(self.width, self.height, self.fx, self.fy,
                                     self.cx, self.cy)
 
+
+
+def project2d(xyz: torch.Tensor) -> torch.Tensor:
+    """vk::project2d analogue: (..., 3) -> (..., 2) on the unit plane (a
+    depth within 1e-10 of zero divides by 1e-10)."""
+    z = xyz[..., 2:3]
+    return xyz[..., :2] / torch.where(z.abs() < 1e-10,
+                                      torch.full_like(z, 1e-10), z)
+
+
+def unproject2d(uv: torch.Tensor) -> torch.Tensor:
+    """vk::unproject2d analogue: (..., 2) -> (..., 3) with z = 1."""
+    return torch.cat([uv, torch.ones_like(uv[..., :1])], -1)

@@ -34,25 +34,88 @@ def build_pyramid(img: torch.Tensor, n_levels: int) -> List[torch.Tensor]:
     return pyr
 
 
-def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, *, oob_value: float = 0.0):
-    """Bilinear interpolation of an (H, W) image at uv (..., 2) = (u, v).
-    Returns (values, valid) with valid iff the full 2x2 support is inside."""
-    H, W = img.shape[-2], img.shape[-1]
-    u = uv[..., 0]
-    v = uv[..., 1]
-    u0 = torch.floor(u)
-    v0 = torch.floor(v)
-    fu = u - u0
-    fv = v - v0
+class LazyPyr:
+    """List-like view of ONE sequence's pyramid inside a batch-stacked
+    pyramid (levels with a leading batch axis): level i is sliced on first
+    read and cached. A torch slice is a view, so this only saves the
+    repeated indexing; it keeps the JAX package's interface."""
+
+    def __init__(self, stacked_levels, k: int):
+        self._s = list(stacked_levels)
+        self._k = k
+        self._cache = {}
+
+    def __len__(self):
+        return len(self._s)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self._s)))]
+        if i not in self._cache:
+            self._cache[i] = self._s[i][self._k]
+        return self._cache[i]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def pack_bilinear(img: torch.Tensor) -> torch.Tensor:
+    """The 4 bilinear taps of every pixel on the last axis (wrapping at the
+    far edges): packed[v, u] = [I(v,u), I(v,u+1), I(v+1,u), I(v+1,u+1)]."""
+    i01 = torch.roll(img, -1, -1)
+    i10 = torch.roll(img, -1, -2)
+    i11 = torch.roll(i10, -1, -1)
+    return torch.stack([img, i01, i10, i11], -1)
+
+
+def pack_bilinear_multi(channels) -> torch.Tensor:
+    """pack_bilinear of C same-shape channels: (H, W, 4, C)."""
+    return torch.stack([pack_bilinear(c) for c in channels], -1)
+
+
+def bilinear_taps(uv, H: int, W: int, lo: int):
+    """(fu, fv, u0, v0, valid) of bilinear taps at uv (..., 2) in an
+    (H, W) image: the fractions, the top-left tap clamped into the image,
+    and valid iff the 2x2 support lies in [lo, W-1-lo] x [lo, H-1-lo]."""
+    u0 = torch.floor(uv[..., 0])
+    v0 = torch.floor(uv[..., 1])
+    fu = uv[..., 0] - u0
+    fv = uv[..., 1] - v0
     u0i = u0.to(torch.int64)
     v0i = v0.to(torch.int64)
-    valid = (u0i >= 0) & (v0i >= 0) & (u0i + 1 <= W - 1) & (v0i + 1 <= H - 1)
-    u0c = u0i.clamp(0, W - 2)
-    v0c = v0i.clamp(0, H - 2)
-    t00 = img[v0c, u0c]
-    t01 = img[v0c, u0c + 1]
-    t10 = img[v0c + 1, u0c]
-    t11 = img[v0c + 1, u0c + 1]
+    valid = ((u0i >= lo) & (v0i >= lo) & (u0i + 1 <= W - 1 - lo)
+             & (v0i + 1 <= H - 1 - lo))
+    return fu, fv, u0i.clamp(0, W - 2), v0i.clamp(0, H - 2), valid
+
+
+def bilinear_sample_multi(packed: torch.Tensor, uv: torch.Tensor):
+    """Bilinear interpolation of an (H, W, 4, C) packed texture
+    (pack_bilinear_multi) at uv (..., 2). Returns (values (..., C), valid).
+    A channel holding a dense gradient map is zero on the outermost ring,
+    so valid requires the 2x2 support 1 px inside the image."""
+    H, W = packed.shape[0], packed.shape[1]
+    fu, fv, u0c, v0c, valid = bilinear_taps(uv, H, W, 1)
+    taps = packed[v0c, u0c]  # (..., 4, C)
+    w = torch.stack([(1.0 - fu) * (1.0 - fv), fu * (1.0 - fv),
+                     (1.0 - fu) * fv, fu * fv], -1)
+    val = (w[..., None] * taps).sum(-2)
+    return torch.where(valid[..., None], val, torch.zeros_like(val)), valid
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor, *, oob_value: float = 0.0):
+    """Bilinear interpolation of an (H, W) image, or of its (H, W, 4)
+    pack_bilinear taps, at uv (..., 2) = (u, v). Returns (values, valid)
+    with valid iff the full 2x2 support is inside."""
+    packed = img.dim() == 3
+    H, W = img.shape[:2] if packed else img.shape[-2:]
+    fu, fv, u0c, v0c, valid = bilinear_taps(uv, H, W, 0)
+    if packed:
+        t00, t01, t10, t11 = img[v0c, u0c].unbind(-1)
+    else:
+        t00 = img[v0c, u0c]
+        t01 = img[v0c, u0c + 1]
+        t10 = img[v0c + 1, u0c]
+        t11 = img[v0c + 1, u0c + 1]
     w00 = (1.0 - fu) * (1.0 - fv)
     w01 = fu * (1.0 - fv)
     w10 = (1.0 - fu) * fv
@@ -67,6 +130,15 @@ def patch_offsets(patch_size: int, dtype=torch.float32, device=None) -> torch.Te
     r = torch.arange(patch_size, dtype=dtype, device=device) - patch_size / 2.0 + 0.5
     oy, ox = torch.meshgrid(r, r, indexing="ij")
     return torch.stack([ox.reshape(-1), oy.reshape(-1)], -1)
+
+
+def extract_patches(img: torch.Tensor, centers: torch.Tensor, patch_size: int):
+    """(N, patch_size**2) bilinear patches at subpixel centres (N, 2), in
+    patch_offsets order. Returns (patches, valid (N,)): valid iff every
+    tap had full bilinear support."""
+    offs = patch_offsets(patch_size, centers.dtype, centers.device)
+    vals, ok = bilinear_sample(img, centers[..., None, :] + offs)
+    return vals, ok.all(-1)
 
 
 def gradient(img: torch.Tensor):
@@ -160,6 +232,14 @@ def pack_pyramid_atlas_flat(pyr_stack) -> FlatAtlas:
     return FlatAtlas(flat=flat, x_off=x_off, sizes=sizes,
                      width=torch.tensor(float(Wa), dtype=torch.float32,
                                         device=flat.device))
+
+
+def ensure_flat_atlas(kf) -> FlatAtlas:
+    """A FlatAtlas as it is, or a list of (K, h, w) pyramid level stacks
+    packed into one."""
+    if isinstance(kf, FlatAtlas):
+        return kf
+    return pack_pyramid_atlas_flat(kf)
 
 
 # ---------------------------------------------------------------------------

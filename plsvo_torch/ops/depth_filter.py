@@ -20,6 +20,7 @@ import torch
 from plsvo_torch import lie
 from plsvo_torch.batlin import inv2x2
 from plsvo_torch.device import resolve_device
+from plsvo_torch.image import ensure_flat_atlas
 from plsvo_torch.indexing import (flat_rows, scatter_drop, seq_of_rows, take,
                                   to_int32, top_k_stable)
 from plsvo_torch.ops import matcher as matcher_ops
@@ -535,6 +536,85 @@ def _combine_line_endpoint_results(seeds: LineSeeds, rs: SeedUpdateResult,
         converged=converged, matched=both,
         depth_s=1.0 / mu_s.clamp_min(1e-10), depth_e=1.0 / mu_e.clamp_min(1e-10),
         skipped=rs.skipped | re_.skipped)
+
+
+def update_line_seeds(seeds: LineSeeds, kf_R_w, kf_t_w, kf_pyr, cur_pyr,
+                      R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter, *,
+                      patch_size: int = 8, n_epi_steps: int = 64,
+                      max_seed_kfs: int = 3,
+                      sigma_conv_factor: float = 200.0
+                      ) -> LineSeedUpdateResult:
+    """Line seeds alone: both endpoints through the point-seed chain (one
+    batch), updated only when both match; the line-only case of
+    update_seeds_combined. kf_pyr is a FlatAtlas or a list of (K, h, w)
+    keyframe pyramid levels."""
+    return update_seeds_combined(
+        None, seeds, kf_R_w, kf_t_w, ensure_flat_atlas(kf_pyr), cur_pyr,
+        R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter, has_pt=False,
+        has_ln=True, patch_size=patch_size, n_epi_steps=n_epi_steps,
+        max_seed_kfs=max_seed_kfs, sigma_conv_factor=sigma_conv_factor)[1]
+
+
+def _bucketed(full, rows, pad_alive, update, fields):
+    """Run `update` on the bucket view full[rows] (alive only where
+    pad_alive), then write `fields` of its seeds back to the rows that are
+    not padding (padding rows point past the table and drop). Returns
+    (updated full table, the update's result in bucket space)."""
+    view = type(full)(*[a[rows.long()] for a in full])
+    res = update(view._replace(alive=view.alive & pad_alive))
+    r = torch.where(pad_alive, rows.long(),
+                    torch.full_like(rows.long(), full.alive.shape[0]))
+    return full._replace(**{k: scatter_drop(getattr(full, k), r,
+                                            getattr(res.seeds, k))
+                            for k in fields}), res
+
+
+def update_point_seeds_bucketed(full: PointSeeds, rows, pad_alive, kf_R_w,
+                                kf_t_w, kf_pyr, cur_pyr, R_w_cur, t_w_cur, fx,
+                                fy, cx, cy, batch_counter, *,
+                                patch_size: int = 8, n_epi_steps: int = 64,
+                                max_seed_kfs: int = 3,
+                                sigma_conv_factor: float = 200.0):
+    """The point-seed update on a compacted bucket of table rows (rows (B,),
+    padded; pad_alive (B,) False on the padding): the view is updated and
+    its rows written back into the full table. kf_pyr is a FlatAtlas or a
+    list of (K, h, w) keyframe pyramid levels. Returns (updated full
+    table, SeedUpdateResult in bucket space)."""
+    kf_flat = ensure_flat_atlas(kf_pyr)
+
+    def update(view):
+        return update_seeds_combined(
+            view, None, kf_R_w, kf_t_w, kf_flat, cur_pyr, R_w_cur, t_w_cur,
+            fx, fy, cx, cy, batch_counter, has_pt=True, has_ln=False,
+            patch_size=patch_size, n_epi_steps=n_epi_steps,
+            max_seed_kfs=max_seed_kfs,
+            sigma_conv_factor=sigma_conv_factor)[0]
+
+    return _bucketed(full, rows, pad_alive, update,
+                     ("mu", "sigma2", "a", "b", "alive"))
+
+
+def update_line_seeds_bucketed(full: LineSeeds, rows, pad_alive, kf_R_w,
+                               kf_t_w, kf_pyr, cur_pyr, R_w_cur, t_w_cur, fx,
+                               fy, cx, cy, batch_counter, *,
+                               patch_size: int = 8, n_epi_steps: int = 64,
+                               max_seed_kfs: int = 3,
+                               sigma_conv_factor: float = 200.0):
+    """update_line_seeds on a compacted bucket of rows (see
+    update_point_seeds_bucketed). Returns (updated full table,
+    LineSeedUpdateResult in bucket space)."""
+    kf_flat = ensure_flat_atlas(kf_pyr)
+
+    def update(view):
+        return update_line_seeds(
+            view, kf_R_w, kf_t_w, kf_flat, cur_pyr, R_w_cur, t_w_cur, fx, fy,
+            cx, cy, batch_counter, patch_size=patch_size,
+            n_epi_steps=n_epi_steps, max_seed_kfs=max_seed_kfs,
+            sigma_conv_factor=sigma_conv_factor)
+
+    return _bucketed(full, rows, pad_alive, update,
+                     ("mu_s", "sigma2_s", "mu_e", "sigma2_e", "a", "b",
+                      "alive"))
 
 
 def scatter_new_point_seeds(full: PointSeeds, rows, mask, kf_idx, uv, f, level,

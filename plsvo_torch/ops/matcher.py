@@ -1,22 +1,28 @@
 """Matcher ops: affine warp, search-level selection, warped reference
 patches, epipolar ZMSSD search, two-view triangulation.
 
-Port of the atlas-based matcher of `plsvo_tpu/ops/matcher.py` (the path
-the pipeline runs). Everything is batched over the feature axis; with a
-per-row sequence index `seq` the rows of B sequences run together, each
+Port of `plsvo_tpu/ops/matcher.py`: the per-level functions
+(`warp_patches_affine`, `epipolar_search_zmssd`, `find_match_direct`: the
+reference's matcher, one pyramid level at a time) and the atlas forms the
+pipeline runs (one pass over a packed pyramid, the same math).
+Everything is batched over the feature axis; with a per-row sequence
+index `seq` the atlas forms run the rows of B sequences together, each
 reading its own sequence's images.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from plsvo_torch.batlin import inv2x2
 from plsvo_torch.indexing import to_int32
-from plsvo_torch.image import (gather_windows_raw, patch_offsets,
-                               sample_in_window)
-from plsvo_torch.ops.feature_align import (align2d_atlas, align_mixed_atlas,
+from plsvo_torch.image import (bilinear_sample, bilinear_sample_atlas,
+                               bilinear_taps, gather_windows_raw,
+                               patch_offsets, sample_in_window)
+from plsvo_torch.ops.feature_align import (align2d, align2d_atlas,
+                                          align_mixed_atlas,
                                           ref_patch_gradients)
 
 
@@ -67,6 +73,94 @@ class EpipolarResult(NamedTuple):
     ok: torch.Tensor  # (N,)
 
 
+def zmssd(ref_patch, cur_patch, dim=-1):
+    """Zero-mean sum of squared differences (vk::patch_score::ZMSSD)."""
+    r = ref_patch - ref_patch.mean(dim, keepdim=True)
+    c = cur_patch - cur_patch.mean(dim, keepdim=True)
+    return ((r - c) ** 2).sum(dim)
+
+
+def _linspace01(n: int, device):
+    """jnp.linspace(0, 1, n) in f32: i * f32(1 / (n - 1)), the last exactly
+    1 (torch.linspace rounds other elements differently)."""
+    a = torch.arange(n, dtype=torch.float32, device=device) * float(
+        np.float32(1.0) / np.float32(max(n - 1, 1)))
+    a[-1] = 1.0
+    return a
+
+
+def _epipolar_px0(f_A, f_B, n_steps, fx, fy, cx, cy):
+    """(N, n_steps, 2) level-0 px of n_steps evenly spaced unit-plane points
+    from the projection of f_A to that of f_B."""
+    uvA = f_A[..., :2] / f_A[..., 2:3]
+    uvB = f_B[..., :2] / f_B[..., 2:3]
+    al = _linspace01(n_steps, f_A.device)
+    uv_n = uvA[:, None, :] + al[None, :, None] * (uvB - uvA)[:, None, :]
+    return torch.stack([fx * uv_n[..., 0] + cx, fy * uv_n[..., 1] + cy], -1)
+
+
+def _best_step(score, oks, px0, scale):
+    """Per row the least score over the steps with full support (inf
+    elsewhere; the first minimum on ties, as jnp.argmin takes it) and its
+    step's px0 * scale."""
+    score = torch.where(oks, score, torch.full_like(score, float("inf")))
+    sidx = torch.argmin(score, -1)
+    best = score.gather(-1, sidx[:, None])[:, 0]
+    uv = px0[torch.arange(px0.shape[0], device=px0.device), sidx]
+    return best, uv * scale
+
+
+def epipolar_search_zmssd(cur_pyr, ref_patch, f_A, f_B, search_level, valid,
+                          fx, fy, cx, cy, *, patch_size: int = 8,
+                          n_steps: int = 64,
+                          threshold_factor: float = 2000.0) -> EpipolarResult:
+    """ZMSSD sampled at n_steps points of the epipolar segment between the
+    projections of the two depth-extreme bearings f_A, f_B (current-frame
+    rays), in each feature's search level of the current pyramid, one level
+    at a time. ok: the best score under threshold_factor * patch area."""
+    N, P = ref_patch.shape
+    px0 = _epipolar_px0(f_A, f_B, n_steps, fx, fy, cx, cy)
+    offs = patch_offsets(patch_size, device=ref_patch.device)
+    best = torch.full((N,), float("inf"), device=ref_patch.device)
+    best_uv = torch.zeros((N, 2), device=ref_patch.device)
+    ref_zm = ref_patch - ref_patch.mean(-1, keepdim=True)
+    for lvl, img in enumerate(cur_pyr):
+        scale = float(np.float32(1.0 / (1 << lvl)))
+        vals, ok = bilinear_sample(img, px0[..., None, :] * scale + offs)
+        cur_zm = vals - vals.mean(-1, keepdim=True)
+        score = ((ref_zm[:, None, :] - cur_zm) ** 2).sum(-1)
+        sbest, uv_lvl = _best_step(score, ok.all(-1), px0, scale)
+        better = (search_level == lvl) & (sbest < best)
+        best = torch.where(better, sbest, best)
+        best_uv = torch.where(better[:, None], uv_lvl, best_uv)
+    return EpipolarResult(uv_level=best_uv, zmssd=best,
+                          ok=valid & (best < threshold_factor * P))
+
+
+def epipolar_search_zmssd_atlas(cur_atlas, x_off, sizes, ref_patch, f_A, f_B,
+                                search_level, valid, fx, fy, cx, cy, *,
+                                patch_size: int = 8, n_steps: int = 64,
+                                threshold_factor: float = 2000.0
+                                ) -> EpipolarResult:
+    """epipolar_search_zmssd through the current frame's pyramid atlas: every
+    row samples its own search level in one pass."""
+    N, P = ref_patch.shape
+    px0 = _epipolar_px0(f_A, f_B, n_steps, fx, fy, cx, cy)
+    offs = patch_offsets(patch_size, device=ref_patch.device)
+    sl = search_level.long()
+    scale = 1.0 / (1 << sl).float()
+    vals, ok = bilinear_sample_atlas(
+        cur_atlas, x_off, sizes, px0[..., None, :] * scale[:, None, None, None]
+        + offs, sl[:, None, None])
+    ref_zm = ref_patch - ref_patch.mean(-1, keepdim=True)
+    cur_zm = vals - vals.mean(-1, keepdim=True)
+    score = ((ref_zm[:, None, :] - cur_zm) ** 2).sum(-1)
+    best, uv_lvl = _best_step(score, ok.all(-1), px0, scale[:, None])
+    return EpipolarResult(
+        uv_level=uv_lvl, zmssd=best,
+        ok=valid & (best < threshold_factor * P) & torch.isfinite(best))
+
+
 def _dot3_fma(a, b):
     """f32 3-term dot product as a chain of fused multiply-adds,
     fma(a2, b2, fma(a1, b1, a0*b0)), the order XLA's f32 dot takes. The
@@ -106,6 +200,29 @@ def _bordered_offsets(patch_size, device):
     r = torch.arange(B, dtype=torch.float32, device=device) - B / 2.0 + 0.5
     oy, ox = torch.meshgrid(r, r, indexing="ij")
     return torch.stack([ox.reshape(-1), oy.reshape(-1)], -1)
+
+
+def warp_patches_affine(pyr_stack, kf_idx, uv_ref, level_ref, A_ref_cur,
+                        search_level, patch_size: int = 8):
+    """Warped bordered (P+2)^2 reference patches, level by level: each
+    feature samples its own keyframe image kf_idx at its anchor level
+    level_ref of pyr_stack (levels of (K, h, w)), at uv_ref / 2^level_ref +
+    A_ref_cur @ (offsets * 2^search_level). Returns (vals (N, (P+2)^2),
+    ok (N,))."""
+    N = uv_ref.shape[0]
+    dev = uv_ref.device
+    offs = _bordered_offsets(patch_size, dev)
+    sl = (1 << search_level.long()).float()[:, None, None]
+    offs_ref0 = torch.einsum("nij,npj->npi", A_ref_cur, offs[None] * sl)
+    out = torch.zeros((N, offs.shape[0]), device=dev)
+    ok_out = torch.zeros(N, dtype=torch.bool, device=dev)
+    for lvl, imgs in enumerate(pyr_stack):
+        pos = uv_ref[:, None, :] * (1.0 / (1 << lvl)) + offs_ref0
+        vals, ok = _bilinear_batched(imgs, pos, kf_idx)
+        sel = level_ref == lvl
+        out = torch.where(sel[:, None], vals, out)
+        ok_out = torch.where(sel, ok.all(-1), ok_out)
+    return out, ok_out
 
 
 def warp_patches_affine_atlas(kf_flat, kf_idx, uv_ref, level_ref, A_ref_cur,
@@ -150,8 +267,10 @@ def warp_patches_affine_atlas(kf_flat, kf_idx, uv_ref, level_ref, A_ref_cur,
     return vals, (in_level & ok).all(-1)
 
 
-def _warp_and_ref(kf_flat, kf_idx, uv_ref, f_ref, depth_ref, level_ref, R, t,
-                  fx, fy, cx, cy, max_level, patch_size):
+def _warp_and_level(uv_ref, f_ref, depth_ref, level_ref, R, t, fx, fy, cx,
+                    cy, max_level):
+    """The affine warp A, whether it is invertible, its inverse (identity
+    where it is not) and the search level of each feature."""
     A = get_warp_affine(fx, fy, cx, cy, uv_ref, f_ref, depth_ref, level_ref,
                         R, t)
     det = A[:, 0, 0] * A[:, 1, 1] - A[:, 0, 1] * A[:, 1, 0]
@@ -160,6 +279,36 @@ def _warp_and_ref(kf_flat, kf_idx, uv_ref, f_ref, depth_ref, level_ref, R, t,
     A_inv = inv2x2(torch.where(A_ok[:, None, None], A, eye))
     slevel = best_search_level(A, max_level)
     return A, A_ok, A_inv, slevel
+
+
+def find_match_direct(ref_pyr_stack, cur_pyr, kf_idx, uv_ref, f_ref,
+                      depth_ref, level_ref, R_cur_ref, t_cur_ref, uv_cur_init,
+                      valid, fx, fy, cx, cy, *, patch_size: int = 8,
+                      n_iter: int = 10, max_level: int = 4) -> MatchResult:
+    """Batched direct match, level by level (Matcher::findMatchDirect):
+    affine-warp the anchor patch from each feature's keyframe pyramid
+    (levels of (K, h, w)), pick the search level, then align2d in that
+    level of the current pyramid. R/t are per feature. It has no edgelet
+    branch, as in the JAX package."""
+    A, A_ok, A_inv, slevel = _warp_and_level(
+        uv_ref, f_ref, depth_ref, level_ref, R_cur_ref, t_cur_ref, fx, fy, cx,
+        cy, max_level)
+    patches_b, warp_ok = warp_patches_affine(
+        ref_pyr_stack, kf_idx, uv_ref, level_ref, A_inv, slevel,
+        patch_size=patch_size)
+    ref_patch, ref_dx, ref_dy = ref_patch_gradients(patches_b, patch_size)
+    ok0 = valid & warp_ok & A_ok
+    uv_out = uv_cur_init
+    conv_out = torch.zeros_like(ok0)
+    for lvl in range(len(cur_pyr)):
+        scale = 1.0 / (1 << lvl)
+        sel = slevel == lvl
+        res = align2d(cur_pyr[lvl], ref_patch, ref_dx, ref_dy,
+                      uv_cur_init * scale, ok0 & sel, patch_size=patch_size,
+                      n_iter=n_iter)
+        uv_out = torch.where(sel[:, None], res.uv / scale, uv_out)
+        conv_out = torch.where(sel, res.converged, conv_out)
+    return MatchResult(uv=uv_out, level=slevel, ok=conv_out & ok0)
 
 
 def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
@@ -174,9 +323,9 @@ def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
     edgelets 1-D along the warped gradient direction in one mixed GN loop;
     without, every row 2-D through align2d_atlas. With `seq` (N,), the
     atlases are batches over sequences and row n reads sequence seq[n]'s."""
-    A, A_ok, A_inv, slevel = _warp_and_ref(
-        kf_flat, kf_idx, uv_ref, f_ref, depth_ref, level_ref, R_cur_ref,
-        t_cur_ref, fx, fy, cx, cy, max_level, patch_size)
+    A, A_ok, A_inv, slevel = _warp_and_level(
+        uv_ref, f_ref, depth_ref, level_ref, R_cur_ref, t_cur_ref, fx, fy, cx,
+        cy, max_level)
     patches_b, warp_ok = warp_patches_affine_atlas(
         kf_flat, kf_idx, uv_ref, level_ref, A_inv, slevel,
         patch_size=patch_size, seq=seq)
@@ -200,21 +349,13 @@ def find_match_direct_atlas(kf_flat, cur_atlas, cur_x_off, cur_sizes, kf_idx,
                        ok=res.converged & ok0)
 
 
-def _bilinear_batched(imgs, pos):
-    """Bilinear sample of per-row images imgs (N,h,w) at pos (N,T,2)."""
-    N, h, w = imgs.shape
-    u = pos[..., 0]
-    v = pos[..., 1]
-    u0 = torch.floor(u)
-    v0 = torch.floor(v)
-    fu = u - u0
-    fv = v - v0
-    u0i = u0.long()
-    v0i = v0.long()
-    valid = (u0i >= 0) & (v0i >= 0) & (u0i + 1 <= w - 1) & (v0i + 1 <= h - 1)
-    uc = u0i.clamp(0, w - 2)
-    vc = v0i.clamp(0, h - 2)
-    n = torch.arange(N, device=imgs.device)[:, None]
+def _bilinear_batched(imgs, pos, idx=None):
+    """Bilinear sample of per-row images at pos (N,T,2): row n reads
+    imgs[n] of imgs (N,h,w), or with idx (N,) imgs[idx[n]]."""
+    N = pos.shape[0]
+    fu, fv, uc, vc, valid = bilinear_taps(pos, *imgs.shape[-2:], 0)
+    n = (torch.arange(N, device=imgs.device) if idx is None
+         else idx.long())[:, None]
     t00 = imgs[n, vc, uc]
     t01 = imgs[n, vc, uc + 1]
     t10 = imgs[n, vc + 1, uc]

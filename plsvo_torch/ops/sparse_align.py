@@ -259,6 +259,13 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
                        chi2=chi2_out)
 
 
+def make_align_points(uv, bearings, depths, valid) -> AlignPoints:
+    """Point units: xyz_ref = bearing * depth, the distance-normalised
+    bearing times the range (not the z-depth)."""
+    return AlignPoints(xyz_ref=bearings * depths[..., None], uv_ref=uv,
+                       valid=valid)
+
+
 def make_align_segments(sp_uv, ep_uv, s_bearing, e_bearing, s_depth, e_depth,
                         valid, n_samples: int, fx, fy, cx, cy) -> AlignSegments:
     """Fixed-count samples along each 3-D segment, uv the exact projection

@@ -232,6 +232,7 @@ class FrameHandlerMono:
         elif self.stage == STAGE_DEFAULT:
             res = self._process_frame(img_dev, timestamp)
         elif self.stage == STAGE_RELOCALIZING:
+            self._harvest_seeds()
             res = self._relocalize(img_dev, pyr, timestamp)
         else:
             raise RuntimeError(f"stage {self.stage}")
@@ -1055,15 +1056,79 @@ class FrameHandlerMono:
             b *= 2
         return min(b, cap)
 
-    def _apply_harvest(self, pt_conv, ln_conv, result_frame_id: int):
+    def _update_seeds(self, frame: FrameState):
+        """The staged seed update of one frame (the JAX handler's; nothing
+        on the tracking path calls it, the fused step updates the seeds):
+        the alive rows (host mirrors) compacted into the smallest
+        power-of-two bucket that holds them, updated and written back by
+        depth_filter.update_*_seeds_bucketed. The results stay on the
+        device until _harvest_seeds."""
+        pl = self.cfg.pipeline
+        m = self.map
+        n = pl.n_pyr_levels
+        R_w = np.swapaxes(m.kf_R, 1, 2)
+        t_w = -np.einsum("kji,kj->ki", m.kf_R, m.kf_t)
+        R_w_cur = frame.R_f_w.T
+        t_w_cur = -frame.R_f_w.T @ frame.t_f_w
+        args = (self._dev(R_w.astype(np.float32)),
+                self._dev(t_w.astype(np.float32)), m.kf_atlas_flat(n),
+                list(frame.pyr[:n]), self._dev(R_w_cur.astype(np.float32)),
+                self._dev(t_w_cur.astype(np.float32)), self._fx, self._fy,
+                self._cx, self._cy, self.batch_counter)
+        kw = dict(max_seed_kfs=pl.max_seed_kfs,
+                  sigma_conv_factor=pl.seed_convergence_sigma2_thresh)
+
+        def bucket(idx, cap):
+            B = self._bucket(len(idx), cap)
+            rows = np.zeros(B, np.int32)
+            rows[:len(idx)] = idx
+            return self._dev(rows), self._dev(np.arange(B) < len(idx))
+
+        pt_tab, ln_tab = self._get_seed_tables()
+        self._pt_converged_dev = None
+        self._pt_rows = np.where(self._seed_alive)[0]
+        if len(self._pt_rows):
+            pt_tab, res = df.update_point_seeds_bucketed(
+                pt_tab, *bucket(self._pt_rows, self.cfg.caps.max_seeds),
+                *args, **kw)
+            self._pt_converged_dev = (res.converged, res.depth_converged,
+                                      res.seeds.alive,
+                                      res.skipped.sum().to(torch.int32))
+        self._ln_converged_dev = None
+        self._ln_rows = np.zeros(0, np.int64)
+        if pl.has_ls and self._lnseed_alive.any():
+            self._ln_rows = np.where(self._lnseed_alive)[0]
+            ln_tab, lres = df.update_line_seeds_bucketed(
+                ln_tab, *bucket(self._ln_rows, self.cfg.caps.max_seed_segs),
+                *args, **kw)
+            self._ln_converged_dev = (lres.converged, lres.depth_s,
+                                      lres.depth_e, lres.seeds.alive,
+                                      lres.skipped.sum().to(torch.int32))
+        self._set_seed_tables(pt_tab, ln_tab)
+
+    def _harvest_seeds(self):
+        """Fetch (one copy) and apply the pending results of _update_seeds;
+        nothing is pending on the fused path, where this is a no-op."""
+        pending = (self._pt_converged_dev, self._ln_converged_dev)
+        if pending == (None, None):
+            return
+        self._apply_harvest(*fused.fetch(pending), result_frame_id=None)
+
+    def _apply_harvest(self, pt_conv, ln_conv, result_frame_id):
         """Converged seeds become CANDIDATE landmarks; the host alive
-        mirrors update from the same fetch (bit-packed masks). Rows
+        mirrors update from the same fetch. Two formats: the fused step's
+        compact one (converged rows and depths, bit-packed masks) and the
+        staged one of _update_seeds (bucket-space masks, mapped back to
+        table rows through _pt_rows / _ln_rows). In the compact format rows
         installed at or after the frame of the step's dispatch keep the
         mirror's value: their install happened after the step was
         dispatched, even in the same add_image, where a drain installs a
         keyframe's seeds after the newest step went out. (The JAX package
         compares with a strict >, so there the newest step's mask marks
-        the fresh seeds dead.)"""
+        the fresh seeds dead.) Any harvest drops the pending staged
+        results, as in the JAX package."""
+        self._pt_converged_dev = None
+        self._ln_converged_dev = None
         if pt_conv is not None:
             self._harvest_points(pt_conv, result_frame_id)
         if ln_conv is not None:
@@ -1071,19 +1136,27 @@ class FrameHandlerMono:
 
     def _harvest_points(self, pt_conv, result_frame_id: int):
         m = self.map
-        rows_c, depth_c, n_conv, alive_w, n_starved = pt_conv
-        cap = self.cfg.caps.max_seeds
-        alive_new = fused.unpack_bits16(alive_w, cap)
-        stale = self._seed_install_frame >= result_frame_id
-        alive_new[stale] = self._seed_alive[stale]
-        self._seed_alive[:] = alive_new
-        pairs = [(int(r), float(d)) for r, d in zip(rows_c, depth_c) if r < cap]
-        pairs = pairs[: int(n_conv)]
+        if len(pt_conv) == 4:  # staged bucket-mask format (_update_seeds)
+            conv, depth, alive_b, n_starved = pt_conv
+            nrows = len(self._pt_rows)
+            self._seed_alive[self._pt_rows] = alive_b[:nrows]
+            pairs = [(int(self._pt_rows[bi]), float(depth[bi]))
+                     for bi in np.where(conv[:nrows])[0]]
+        else:
+            rows_c, depth_c, n_conv, alive_w, n_starved = pt_conv
+            cap = self.cfg.caps.max_seeds
+            alive_new = fused.unpack_bits16(alive_w, cap)
+            stale = self._seed_install_frame >= result_frame_id
+            alive_new[stale] = self._seed_alive[stale]
+            self._seed_alive[:] = alive_new
+            pairs = [(int(r), float(d)) for r, d in zip(rows_c, depth_c)
+                     if r < cap]
+            pairs = pairs[: int(n_conv)]
+            # converged seeds past the report budget die without a landmark
+            # (as in the JAX package); count them
+            self.permon.log("seed_conv_dropped",
+                            max(int(n_conv) - fused.CONV_BUDGET, 0))
         self.permon.log("seed_starved", int(n_starved))
-        # converged seeds past the report budget die without a landmark (as
-        # in the JAX package); count them
-        self.permon.log("seed_conv_dropped",
-                        max(int(n_conv) - fused.CONV_BUDGET, 0))
         sh = self._seed_host
         for i, depth_i in pairs:
             k = sh["kf_idx"][i]
@@ -1097,17 +1170,25 @@ class FrameHandlerMono:
 
     def _harvest_lines(self, ln_conv, result_frame_id: int):
         m = self.map
-        rows_c, ds_c, de_c, n_conv, alive_w, n_starved = ln_conv
-        cap = self.cfg.caps.max_seed_segs
-        alive_new = fused.unpack_bits16(alive_w, cap)
-        stale = self._lnseed_install_frame >= result_frame_id
-        alive_new[stale] = self._lnseed_alive[stale]
-        self._lnseed_alive[:] = alive_new
+        if len(ln_conv) == 5:  # staged bucket-mask format (_update_seeds)
+            conv, ds, de, alive_b, n_starved = ln_conv
+            nrows = len(self._ln_rows)
+            self._lnseed_alive[self._ln_rows] = alive_b[:nrows]
+            triples = [(int(self._ln_rows[bi]), float(ds[bi]), float(de[bi]))
+                       for bi in np.where(conv[:nrows])[0]]
+        else:
+            rows_c, ds_c, de_c, n_conv, alive_w, n_starved = ln_conv
+            cap = self.cfg.caps.max_seed_segs
+            alive_new = fused.unpack_bits16(alive_w, cap)
+            stale = self._lnseed_install_frame >= result_frame_id
+            alive_new[stale] = self._lnseed_alive[stale]
+            self._lnseed_alive[:] = alive_new
+            triples = [(int(r), float(a), float(b))
+                       for r, a, b in zip(rows_c, ds_c, de_c)
+                       if r < cap][: int(n_conv)]
         self.permon.log("seed_starved_ln", int(n_starved))
         lh = self._lnseed_host
-        triples = [(int(r), float(a), float(b))
-                   for r, a, b in zip(rows_c, ds_c, de_c) if r < cap]
-        for i, ds_i, de_i in triples[: int(n_conv)]:
+        for i, ds_i, de_i in triples:
             k = lh["kf_idx"][i]
             if not m.kf_occupied[k]:
                 continue
@@ -1197,6 +1278,16 @@ class FrameHandlerMono:
         """User-triggered full reset (start over from FIRST)."""
         self._reset()
 
+    def start(self):
+        """Resume from PAUSED (the handler never pauses itself; kept for the
+        reference's interface, FrameHandlerBase::start)."""
+        if self.stage == STAGE_PAUSED:
+            self.stage = STAGE_FIRST
+
+    def last_processing_time(self) -> float:
+        """Seconds spent in the most recent add_image."""
+        return float(self.permon.timers.get("tot_time", 0.0))
+
     def _reset(self):
         caps = self.cfg.caps
         self.stage = STAGE_FIRST
@@ -1221,6 +1312,12 @@ class FrameHandlerMono:
             "ef": np.zeros((SL, 3), np.float32), "level": np.zeros(SL, np.int32)}
         self._lnseed_alive = np.zeros(SL, bool)
         self._lnseed_install_frame = np.full(SL, -1, np.int64)
+        # the staged seed update's results awaiting _harvest_seeds, and the
+        # table rows of their bucket rows
+        self._pt_converged_dev = None
+        self._ln_converged_dev = None
+        self._pt_rows = np.arange(S)
+        self._ln_rows = np.arange(SL)
         # pipelined mode: the map carry, frames in flight [(FrameState,
         # FullStepResult)], fetch windows in flight, finished results not
         # yet returned, and keyframe detections and local BA results whose

@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from plsvo_torch.image import build_pyramid
+from plsvo_torch.image import build_pyramid, ensure_flat_atlas
 from plsvo_torch.indexing import (flat_rows, nonzero_padded, scatter_drop,
                                   take, top_k_stable)
 from plsvo_torch.ops import pose_opt, sparse_align, struct_opt
@@ -229,9 +229,8 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     dev = last.pt_uv.device
     B = R_last.shape[0]
     # ---- 1. sparse image alignment against the last frame ----
-    pts_in = sparse_align.AlignPoints(
-        xyz_ref=last.pt_f * last.pt_depth[..., None], uv_ref=last.pt_uv,
-        valid=last.pt_valid)
+    pts_in = sparse_align.make_align_points(last.pt_uv, last.pt_f,
+                                            last.pt_depth, last.pt_valid)
     segs_in = sparse_align.make_align_segments(
         last.seg_suv, last.seg_euv, last.seg_sf, last.seg_ef, last.seg_sdepth,
         last.seg_edepth, last.seg_valid, n_samples=n_line_samples,
@@ -696,17 +695,34 @@ def track_frame_step(last_pyr, cur_pyr, kf_flat, blob: torch.Tensor,
         cy, specs=specs, **kw))
 
 
+def _last_from_blob(blob, specs):
+    """(LastFrameTables, R_last, t_last, pt_last_optim, ln_last_optim) of a
+    blob in the last_blob_specs layout."""
+    parts = unpack_blob(blob, specs)
+    return (LastFrameTables(*parts[:11]),) + tuple(parts[11:])
+
+
 def _step_from_blob(last_pyr, cur_pyr, kf_flat, blob, mt, pt_seeds, ln_seeds,
                     batch_counter, fx, fy, cx, cy, *, specs, **kw):
-    (pt_uv, pt_f, pt_depth, pt_valid, seg_suv, seg_euv, seg_sf, seg_ef,
-     seg_sdepth, seg_edepth, seg_valid, R_last, t_last, pt_last_optim,
-     ln_last_optim) = unpack_blob(blob, specs)
-    last = LastFrameTables(pt_uv, pt_f, pt_depth, pt_valid, seg_suv, seg_euv,
-                           seg_sf, seg_ef, seg_sdepth, seg_edepth, seg_valid)
+    last, R_last, t_last, plo, llo = _last_from_blob(blob, specs)
     return _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last, R_last,
-                                  t_last, pt_last_optim, ln_last_optim, mt,
-                                  pt_seeds, ln_seeds, batch_counter, fx, fy,
-                                  cx, cy, **kw)
+                                  t_last, plo, llo, mt, pt_seeds, ln_seeds,
+                                  batch_counter, fx, fy, cx, cy, **kw)
+
+
+def track_frame_core_blob(last_pyr, cur_pyr, kf_pyr, blob: torch.Tensor,
+                          mt: MapTables, fx, fy, cx, cy, *, specs,
+                          **kw) -> FusedResult:
+    """track_frame_core of one sequence with the per-frame host tables
+    delivered as ONE packed upload (`pack_blob_host` in the
+    `last_blob_specs` layout). kf_pyr is a FlatAtlas or a list of
+    (K, h, w) keyframe pyramid levels; the rest as track_frame_core's,
+    without the batch axis."""
+    last, R_last, t_last, plo, llo = _last_from_blob(blob[None], specs)
+    return _first(track_frame_core(
+        _one(list(last_pyr)), _one(list(cur_pyr)),
+        _one_atlas(ensure_flat_atlas(kf_pyr)), last, R_last, t_last, _one(mt),
+        plo, llo, fx, fy, cx, cy, **kw))
 
 
 def track_frame_step_list(last_pyrs, cur_pyr, kf_flat, blobs, mts,

@@ -3,7 +3,8 @@
 Port of `plsvo_tpu/pipeline/reprojector.py`: project all landmarks, keep
 the best-quality landmark per grid cell (a line by its midpoint's cell),
 refine all winners in one `find_match_direct_atlas` batch, then retry the
-per-cell runner-ups where the winner failed. `reproject_combined` refines
+per-cell runner-ups where the winner failed (`reproject_points`,
+`reproject_segments`). `reproject_combined` refines
 points and both endpoints of every selected line in one batch (one K2
 launch), and its retry round in one more. Tables, poses and images take a
 leading batch axis of B sequences (the JAX package's vmap): selection is
@@ -361,6 +362,52 @@ def reproject_points(pt_pos, pt_status, pt_anchor_kf, pt_anchor_uv,
                         matched=matched,
                         n_attempts=sel.sum(-1).to(torch.int32),
                         n_matches=matched.sum(-1).to(torch.int32))
+
+
+@_unbatched
+def reproject_segments(ln_spos, ln_epos, ln_status, ln_anchor_kf,
+                       ln_anchor_suv, ln_anchor_euv, ln_anchor_sf,
+                       ln_anchor_ef, ln_anchor_level, kf_R, kf_t, kf_flat,
+                       cur_pyr, R_cur, t_cur, fx, fy, cx, cy, *,
+                       cell_size: int = 25, max_out: int = 96,
+                       patch_size: int = 8,
+                       retry: bool = True) -> ReprojSegResult:
+    """Line segments only: the best line per cell of its projected
+    midpoint, both endpoints refined in a batch each (2-D rows through
+    align2d_atlas, as the JAX function, which passes no edgelet flag);
+    with retry, the per-cell runner-ups where either endpoint failed, in
+    batches of max(max_out // 8, 8) rows, appended as extra result rows.
+    Batched as reproject_points."""
+    lt = (ln_spos, ln_epos)
+    at = (ln_anchor_kf, ln_anchor_suv, ln_anchor_euv, ln_anchor_sf,
+          ln_anchor_ef, ln_anchor_level)
+    lm, sel, ri_s, ri_e, rinfo = _select_segments(
+        *lt, ln_status, *at, kf_R, kf_t, tuple(cur_pyr[0].shape[-2:]), R_cur,
+        t_cur, fx, fy, cx, cy, cell_size=cell_size, max_out=max_out,
+        patch_size=patch_size)
+    res_s = _refine(kf_flat, cur_pyr, ri_s, fx, fy, cx, cy,
+                    patch_size=patch_size)
+    res_e = _refine(kf_flat, cur_pyr, ri_e, fx, fy, cx, cy,
+                    patch_size=patch_size)
+    if retry:
+        Gr = max(max_out // 8, 8)
+        lm2, sel2 = _retry_rows(rinfo, sel & ~(res_s.ok & res_e.ok), Gr)
+        suv2, _ = _project_uv(take(ln_spos, lm2), R_cur, t_cur, fx, fy, cx, cy)
+        euv2, _ = _project_uv(take(ln_epos, lm2), R_cur, t_cur, fx, fy, cx, cy)
+        ri_s2, ri_e2 = _segment_anchor_inputs(
+            lm2, sel2, suv2, euv2, *lt, *at, kf_R, kf_t, R_cur, t_cur)
+        res_s = _cat(res_s, _refine(kf_flat, cur_pyr, ri_s2, fx, fy, cx, cy,
+                                    patch_size=patch_size))
+        res_e = _cat(res_e, _refine(kf_flat, cur_pyr, ri_e2, fx, fy, cx, cy,
+                                    patch_size=patch_size))
+        lm = torch.cat([lm, lm2], 1)
+        sel = torch.cat([sel, sel2], 1)
+    both = res_s.ok & res_e.ok & sel
+    return ReprojSegResult(
+        lm_idx=lm, selected=sel, s_uv=res_s.uv, e_uv=res_e.uv,
+        level=torch.maximum(res_s.level, res_e.level), matched=both,
+        n_attempts=sel.sum(-1).to(torch.int32),
+        n_matches=both.sum(-1).to(torch.int32))
 
 
 def _cat(*xs):

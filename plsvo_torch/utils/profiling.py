@@ -9,8 +9,8 @@ registration src/frame_handler_base.cpp:58-86: timers `pyramid_creation`,
 compiles its tracing out (SVO_TRACE never defined, SURVEY §5.1); here it is
 always available and cheap.
 
-Kernel-level device profiling is `torch.profiler` around a run; the timers
-here are host wall clock.
+Kernel-level device profiling is `device_trace` (torch.profiler) around a
+run; the timers here are host wall clock.
 """
 from __future__ import annotations
 
@@ -32,6 +32,11 @@ class PerformanceMonitor:
     logs: Dict[str, float] = field(default_factory=dict)
     frames: List[dict] = field(default_factory=list)
     _starts: Dict[str, float] = field(default_factory=dict)
+    # the frame the timers and logs belong to: -1 until new_frame, so a
+    # log before the first frame (a harvest right after a checkpoint load)
+    # is recorded rather than failing (the JAX package's class has no
+    # default here)
+    _frame_id: int = -1
 
     def new_frame(self, frame_id: int):
         if self.timers or self.logs:
@@ -71,3 +76,32 @@ class PerformanceMonitor:
                 if k.startswith("t_"):
                     acc[k].append(v)
         return {k: 1000.0 * sum(v) / len(v) for k, v in acc.items() if v}
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Capture a torch.profiler trace of the block (CPU activity, and the
+    card's where CUDA is available) and write it into log_dir as a Chrome
+    trace, viewable in Perfetto or chrome://tracing: the counterpart of
+    the JAX package's jax.profiler trace. Yields the profiler; the file's
+    path is its `trace_path` once the block has ended."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.trace_path = os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(prof.trace_path)

@@ -81,10 +81,13 @@ def _pose(R_w_c, t_w_c, device):
             torch.as_tensor(np.asarray(t_w_c, np.float32), device=device))
 
 
-def _render(scene: PlaneScene, cam, R_w_c, t_w_c, device, undistort: bool):
+def _render(scene: PlaneScene, cam, R_w_c, t_w_c, device, undistort: bool,
+            with_depth: bool = False):
     """(H, W) image of the plane through the camera (0 where the ray misses
     the plane or the texture). undistort: cast the rays of the distorted
-    pixels (a camera with distortion renders distorted images)."""
+    pixels (a camera with distortion renders distorted images). With
+    with_depth, (image, depth along the camera's z axis, inf where the ray
+    misses)."""
     H, W = cam.height, cam.width
     tex = torch.as_tensor(scene.texture, device=device)
     origin = torch.as_tensor(np.asarray(scene.origin, np.float32), device=device)
@@ -109,7 +112,20 @@ def _render(scene: PlaneScene, cam, R_w_c, t_w_c, device, undistort: bool):
     val = ((1 - fx) * (1 - fy) * tex[y0, x0] + fx * (1 - fy) * tex[y0, x1]
            + (1 - fx) * fy * tex[y1, x0] + fx * fy * tex[y1, x1])
     ok = (tval > 1e-6) & in_tex
-    return torch.where(ok, val, torch.zeros_like(val)).reshape(H, W)
+    img = torch.where(ok, val, torch.zeros_like(val)).reshape(H, W)
+    if not with_depth:
+        return img
+    z = ((pw - t[None, :]) @ R)[:, 2]
+    depth = torch.where(ok, z, torch.full_like(z, float("inf")))
+    return img, depth.reshape(H, W)
+
+
+def render(scene: PlaneScene, cam, R_w_c, t_w_c, device=None):
+    """Point-sampled render of the plane through the camera (R_w_c, t_w_c
+    cam->world): (image (H, W), depth along the camera's z axis (H, W)),
+    0 and inf where the ray misses the plane or the texture."""
+    return _render(scene, cam, R_w_c, t_w_c, resolve_device(device),
+                   cam.has_distortion, with_depth=True)
 
 
 def _supersampled(cam, ss: int):

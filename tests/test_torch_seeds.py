@@ -8,6 +8,7 @@ import torch
 
 from plsvo_torch import image as ti
 from plsvo_torch.ops import depth_filter as tdf
+from plsvo_torch.parallel.mesh import leaves
 from plsvo_tpu import image as ji
 from plsvo_tpu.camera import PinholeCamera
 from plsvo_tpu.ops import depth_filter as jdf
@@ -162,9 +163,10 @@ def test_update_seeds_combined_matches_jax(seed_problem, pt_work, has_ln):
 
 def test_update_line_seeds_matches_jax(seed_problem):
     """Line seeds alone: JAX's update_line_seeds (each endpoint in a batch
-    of its own) against the port's one line-seed path, update_seeds_combined
-    without point seeds (both endpoints in one batch; without a search
-    budget the rows do not interact)."""
+    of its own) against the port's, the line-only case of
+    update_seeds_combined (both endpoints in one batch; without a search
+    budget the rows do not interact), which gives the combined path's
+    result exactly."""
     p = seed_problem
     lj = jdf.LineSeeds(**{k: jnp.asarray(v) for k, v in p["ln_cols"].items()})
     lt = tdf.LineSeeds(**{k: T(v) for k, v in p["ln_cols"].items()})
@@ -174,14 +176,17 @@ def test_update_line_seeds_matches_jax(seed_problem):
         ji.build_pyramid(jnp.asarray(p["img1"]), 3), jnp.asarray(p["R0"]),
         jnp.asarray(p["t1"]), CAM.fx, CAM.fy, CAM.cx, CAM.cy,
         jnp.asarray(0, jnp.int32), n_epi_steps=128)
-    pt_res, rt = tdf.update_seeds_combined(
-        None, lt, T(p["R0"])[None], T(p["t0"])[None],
-        ti.pack_pyramid_atlas_flat(
-            [q[None] for q in ti.build_pyramid(T(p["img0"]), 3)]),
-        ti.build_pyramid(T(p["img1"]), 3), T(p["R0"]), T(p["t1"]),
-        250.0, 250.0, 160.0, 120.0, 0, has_pt=False, has_ln=True,
-        n_epi_steps=128)
+    args = (T(p["R0"])[None], T(p["t0"])[None],
+            [q[None] for q in ti.build_pyramid(T(p["img0"]), 3)],
+            ti.build_pyramid(T(p["img1"]), 3), T(p["R0"]), T(p["t1"]),
+            250.0, 250.0, 160.0, 120.0, 0)
+    rt = tdf.update_line_seeds(lt, *args, n_epi_steps=128)
+    pt_res, rc = tdf.update_seeds_combined(
+        None, lt, *args[:2], ti.pack_pyramid_atlas_flat(args[2]), *args[3:],
+        has_pt=False, has_ln=True, n_epi_steps=128)
     assert pt_res is None
+    for a, b in zip(leaves(rt), leaves(rc)):
+        assert torch.equal(a, b)
     for name in ("converged", "matched"):
         np.testing.assert_array_equal(getattr(rt, name).numpy(),
                                       np.asarray(getattr(rj, name)), name)
