@@ -18,6 +18,7 @@ from plsvo_torch import lie
 from plsvo_torch.batlin import solve_psd
 from plsvo_torch.indexing import gather_clamped
 from plsvo_torch.ops.sparse_align import jacobian_xyz2uv
+from plsvo_torch.utils.profiling import count
 
 _TUKEY_B = 4.6851
 
@@ -172,6 +173,7 @@ def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
         chi2_prev = torch.full((B,), float("inf"), device=dev)
         A_last = torch.eye(6, dtype=f32, device=dev).expand(B, 6, 6)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
+        it = -1  # the loop runs it + 1 iterations
         for it in range(iters):
             A, b, chi2 = system(R, t, pt_valid, seg_valid)
             dT = solve_psd(A, b, 1e-10)
@@ -195,6 +197,7 @@ def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
             done = done | stop
             if not bool((~done).any()):  # host sync: every sequence stopped
                 break
+        count("pose_iters", it + 1)
         return R, t, chi2_prev, A_last
 
     R, t, chi2, A_fin = run_gn(R0, t0, inp.pt_valid, inp.seg_valid, n_iter)

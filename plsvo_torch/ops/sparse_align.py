@@ -17,6 +17,7 @@ from plsvo_torch import lie
 from plsvo_torch.batlin import solve_psd
 from plsvo_torch.image import gather_patch_windows, sample_patch_windows
 from plsvo_torch.indexing import seq_of_rows
+from plsvo_torch.utils.profiling import count
 
 
 class AlignPoints(NamedTuple):
@@ -190,6 +191,7 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
         chi2_prev = torch.full((B,), float("inf"), device=dev)
         alive = seg_alive
         done = torch.zeros(B, dtype=torch.bool, device=dev)
+        it = -1  # the loop runs it + 1 iterations
         for it in range(n_iter):
             _, uv_cur_all = _warp_project(R, t, xyz_all, fx, fy, cx, cy, scale)
             I_cur_all, in_all = sample_patch_windows(
@@ -249,6 +251,7 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
             done = done | stop
             if not bool((~done).any()):  # host sync: every sequence stopped
                 break
+        count("align_iters", it + 1)
         chi2_out = chi2_prev
         seg_alive = alive
         n_pts_vis = vis_pt.sum(-1).to(torch.int32)

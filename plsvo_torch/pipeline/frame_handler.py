@@ -32,7 +32,6 @@ match.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -214,22 +213,28 @@ class FrameHandlerMono:
         """Track one frame. In pipelined mode the result returned belongs
         to an earlier frame, or is None while the pipeline fills."""
         self.permon.new_frame(self.frame_id)
-        t_tot = time.perf_counter()
-        with self.permon.timer("pyramid_creation"):
+        with self.permon.installed(), self.permon.timer("tot_time"):
+            res = self._add_image(img, timestamp)
+        if res is not None:
+            self.results.append(res)
+        return res
+
+    def _add_image(self, img, timestamp: float) -> Optional[FrameResult]:
+        # a DEFAULT frame's pyramid is built where it is tracked
+        default = self.stage == STAGE_DEFAULT
+        with self.permon.timer("upload" if default else "pyramid_creation"):
             a = img if torch.is_tensor(img) else torch.tensor(np.asarray(img))
             if a.dtype not in (torch.uint8, torch.float32):
                 a = a.to(torch.float32)
             # uint8 stays uint8 for the upload (a quarter of the bytes)
             img_dev = (self._dev(a.numpy()) if a.device.type == "cpu"
                        else a.to(self.device))
-            # a DEFAULT frame's pyramid is built where it is tracked
-            pyr = (None if self.stage == STAGE_DEFAULT
-                   else build_pyramid(img_dev, self.n_levels))
+            pyr = None if default else build_pyramid(img_dev, self.n_levels)
         if self.stage == STAGE_FIRST:
             res = self._process_first(pyr, timestamp)
         elif self.stage == STAGE_SECOND:
             res = self._process_second(pyr, timestamp)
-        elif self.stage == STAGE_DEFAULT:
+        elif default:
             res = self._process_frame(img_dev, timestamp)
         elif self.stage == STAGE_RELOCALIZING:
             self._harvest_seeds()
@@ -237,11 +242,6 @@ class FrameHandlerMono:
         else:
             raise RuntimeError(f"stage {self.stage}")
         self.frame_id += 1
-        self.permon.timers["tot_time"] = time.perf_counter() - t_tot
-        if res is not None:
-            self.results.append(res)
-            self.permon.log("img_align_n_tracked", res.n_pt_matches)
-            self.permon.log("n_seg_tracked", res.n_seg_matches)
         return res
 
     # ------------------------------------------------------------------
@@ -646,6 +646,10 @@ class FrameHandlerMono:
     def _post_fused(self, frame: FrameState, res) -> FrameResult:
         """Host bookkeeping after the device step: counters, deletion
         rules, table fills, structure-opt write-back, keyframe policy."""
+        with self.permon.timer("post_fused"):
+            return self._post_fused_body(frame, res)
+
+    def _post_fused_body(self, frame: FrameState, res) -> FrameResult:
         pl = self.cfg.pipeline
         last = self.last_frame
         m = self.map

@@ -37,6 +37,7 @@ from plsvo_torch.parallel.mesh import Shards, on_device, split_rows
 from plsvo_torch.parallel.mesh import leaves as _leaves
 from plsvo_torch.parallel.mesh import tree_map as _tree_map
 from plsvo_torch.pipeline import reprojector
+from plsvo_torch.utils.profiling import span
 
 CONV_BUDGET = 64  # converged-seed reports per frame
 
@@ -229,101 +230,111 @@ def track_frame_core(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     dev = last.pt_uv.device
     B = R_last.shape[0]
     # ---- 1. sparse image alignment against the last frame ----
-    pts_in = sparse_align.make_align_points(last.pt_uv, last.pt_f,
-                                            last.pt_depth, last.pt_valid)
-    segs_in = sparse_align.make_align_segments(
-        last.seg_suv, last.seg_euv, last.seg_sf, last.seg_ef, last.seg_sdepth,
-        last.seg_edepth, last.seg_valid, n_samples=n_line_samples,
-        fx=fx, fy=fy, cx=cx, cy=cy)
-    ares = sparse_align.sparse_img_align(
-        last_pyr, cur_pyr, pts_in, segs_in,
-        torch.eye(3, device=dev).expand(B, 3, 3),
-        torch.zeros((B, 3), device=dev), fx, fy, cx, cy, levels=levels,
-        n_iter=n_iter_align, patch_size=patch_align)
-    R_cur = ares.R @ R_last
-    t_cur = (ares.R @ t_last[..., None])[..., 0] + ares.t
+    with span("sparse_img_align"):
+        pts_in = sparse_align.make_align_points(last.pt_uv, last.pt_f,
+                                                last.pt_depth, last.pt_valid)
+        segs_in = sparse_align.make_align_segments(
+            last.seg_suv, last.seg_euv, last.seg_sf, last.seg_ef,
+            last.seg_sdepth, last.seg_edepth, last.seg_valid,
+            n_samples=n_line_samples, fx=fx, fy=fy, cx=cx, cy=cy)
+        ares = sparse_align.sparse_img_align(
+            last_pyr, cur_pyr, pts_in, segs_in,
+            torch.eye(3, device=dev).expand(B, 3, 3),
+            torch.zeros((B, 3), device=dev), fx, fy, cx, cy, levels=levels,
+            n_iter=n_iter_align, patch_size=patch_align)
+        R_cur = ares.R @ R_last
+        t_cur = (ares.R @ t_last[..., None])[..., 0] + ares.t
 
     # ---- 2. reprojection + batched refinement (points, and with lines
     # both segment endpoints in the same batch) ----
-    pt_args = (mt.pt_pos, mt.pt_status, mt.pt_anchor_kf, mt.pt_anchor_uv,
-               mt.pt_anchor_f, mt.pt_anchor_level, mt.pt_obs_kf,
-               mt.pt_obs_uv, mt.pt_obs_f, mt.pt_obs_level)
-    rkw = dict(has_edgelets=has_edgelets, pt_anchor_type=mt.pt_anchor_type,
-               pt_anchor_dir=mt.pt_anchor_dir)
-    M = max_segs_out
-    if has_ls:
-        pt_res, seg_res = reprojector.reproject_combined(
-            *pt_args, mt.ln_spos, mt.ln_epos, mt.ln_status, mt.ln_anchor_kf,
-            mt.ln_anchor_suv, mt.ln_anchor_euv, mt.ln_anchor_sf,
-            mt.ln_anchor_ef, mt.ln_anchor_level, mt.kf_R, mt.kf_t, kf_flat,
-            cur_pyr[:n_pyr_use], R_cur, t_cur, fx, fy, cx, cy,
-            cell_size=cell_size, cell_size_segs=cell_size_segs,
-            max_pts_out=max_pts_out, max_segs_out=max_segs_out, **rkw)
-        seg_sf_cur = _unproject(seg_res.s_uv, fx, fy, cx, cy)
-        seg_ef_cur = _unproject(seg_res.e_uv, fx, fy, cx, cy)
-        seg_line = pose_opt.line_coeffs_from_bearings(seg_sf_cur, seg_ef_cur)
-    else:
-        pt_res = reprojector.reproject_points(
-            *pt_args, mt.kf_R, mt.kf_t, kf_flat, cur_pyr[:n_pyr_use], R_cur,
-            t_cur, fx, fy, cx, cy, cell_size=cell_size, max_out=max_pts_out,
-            **rkw)
-        z2 = torch.zeros((B, M, 2), device=dev)
-        zi = torch.zeros((B, M), dtype=torch.int32, device=dev)
-        zb = torch.zeros((B, M), dtype=torch.bool, device=dev)
-        seg_res = reprojector.ReprojSegResult(
-            lm_idx=zi.long(), selected=zb, s_uv=z2, e_uv=z2, level=zi,
-            matched=zb, n_attempts=zi[:, 0], n_matches=zi[:, 0])
-        seg_line = seg_sf_cur = seg_ef_cur = torch.zeros((B, M, 3), device=dev)
-    pt_f_cur = _unproject(pt_res.uv, fx, fy, cx, cy)
-    seg_lm = seg_res.lm_idx
-    seg_matched = seg_res.matched
+    with span("reproject"):
+        pt_args = (mt.pt_pos, mt.pt_status, mt.pt_anchor_kf, mt.pt_anchor_uv,
+                   mt.pt_anchor_f, mt.pt_anchor_level, mt.pt_obs_kf,
+                   mt.pt_obs_uv, mt.pt_obs_f, mt.pt_obs_level)
+        rkw = dict(has_edgelets=has_edgelets,
+                   pt_anchor_type=mt.pt_anchor_type,
+                   pt_anchor_dir=mt.pt_anchor_dir)
+        M = max_segs_out
+        if has_ls:
+            pt_res, seg_res = reprojector.reproject_combined(
+                *pt_args, mt.ln_spos, mt.ln_epos, mt.ln_status,
+                mt.ln_anchor_kf, mt.ln_anchor_suv, mt.ln_anchor_euv,
+                mt.ln_anchor_sf, mt.ln_anchor_ef, mt.ln_anchor_level, mt.kf_R,
+                mt.kf_t, kf_flat, cur_pyr[:n_pyr_use], R_cur, t_cur, fx, fy,
+                cx, cy, cell_size=cell_size, cell_size_segs=cell_size_segs,
+                max_pts_out=max_pts_out, max_segs_out=max_segs_out, **rkw)
+            seg_sf_cur = _unproject(seg_res.s_uv, fx, fy, cx, cy)
+            seg_ef_cur = _unproject(seg_res.e_uv, fx, fy, cx, cy)
+            seg_line = pose_opt.line_coeffs_from_bearings(seg_sf_cur,
+                                                          seg_ef_cur)
+        else:
+            pt_res = reprojector.reproject_points(
+                *pt_args, mt.kf_R, mt.kf_t, kf_flat, cur_pyr[:n_pyr_use],
+                R_cur, t_cur, fx, fy, cx, cy, cell_size=cell_size,
+                max_out=max_pts_out, **rkw)
+            z2 = torch.zeros((B, M, 2), device=dev)
+            zi = torch.zeros((B, M), dtype=torch.int32, device=dev)
+            zb = torch.zeros((B, M), dtype=torch.bool, device=dev)
+            seg_res = reprojector.ReprojSegResult(
+                lm_idx=zi.long(), selected=zb, s_uv=z2, e_uv=z2, level=zi,
+                matched=zb, n_attempts=zi[:, 0], n_matches=zi[:, 0])
+            seg_line = seg_sf_cur = seg_ef_cur = torch.zeros((B, M, 3),
+                                                             device=dev)
+        pt_f_cur = _unproject(pt_res.uv, fx, fy, cx, cy)
+        seg_lm = seg_res.lm_idx
+        seg_matched = seg_res.matched
 
     # ---- 3. pose optimization on the matched features ----
-    inp = pose_opt.PoseOptInputs(
-        pt_f=pt_f_cur, pt_level=pt_res.level,
-        pt_pos_w=take(mt.pt_pos, pt_res.lm_idx), pt_valid=pt_res.matched,
-        seg_line=seg_line, seg_level=seg_res.level,
-        seg_spos_w=take(mt.ln_spos, seg_lm),
-        seg_epos_w=take(mt.ln_epos, seg_lm), seg_valid=seg_matched)
-    pres = pose_opt.optimize_pose(inp, R_cur, t_cur, fx, n_iter=poseopt_iters,
-                                  n_iter_ref=poseopt_iters_ref,
-                                  reproj_thresh=poseopt_thresh)
+    with span("optimize_pose"):
+        inp = pose_opt.PoseOptInputs(
+            pt_f=pt_f_cur, pt_level=pt_res.level,
+            pt_pos_w=take(mt.pt_pos, pt_res.lm_idx), pt_valid=pt_res.matched,
+            seg_line=seg_line, seg_level=seg_res.level,
+            seg_spos_w=take(mt.ln_spos, seg_lm),
+            seg_epos_w=take(mt.ln_epos, seg_lm), seg_valid=seg_matched)
+        pres = pose_opt.optimize_pose(inp, R_cur, t_cur, fx,
+                                      n_iter=poseopt_iters,
+                                      n_iter_ref=poseopt_iters_ref,
+                                      reproj_thresh=poseopt_thresh)
 
     # ---- 4. structure optimization: the least-recently-optimized matches
     # of each sequence, all sequences' landmarks in one solve ----
-    ninf = torch.full((), -float("inf"), device=dev)
-    key_pt = torch.where(pt_res.matched,
-                         -take(pt_last_optim, pt_res.lm_idx), ninf)
-    _, sel_i = top_k_stable(key_pt, n_struct_pts)
-    st_pt_lm = pt_res.lm_idx.gather(1, sel_i)
-    st_pt_valid = pt_res.matched.gather(1, sel_i)
-    key_sg = torch.where(seg_matched, -take(ln_last_optim, seg_lm), ninf)
-    _, ssel_i = top_k_stable(key_sg, n_struct_segs)
-    st_ln_lm = seg_lm.gather(1, ssel_i)
-    st_ln_valid = seg_matched.gather(1, ssel_i)
+    with span("optimize_points"):
+        ninf = torch.full((), -float("inf"), device=dev)
+        key_pt = torch.where(pt_res.matched,
+                             -take(pt_last_optim, pt_res.lm_idx), ninf)
+        _, sel_i = top_k_stable(key_pt, n_struct_pts)
+        st_pt_lm = pt_res.lm_idx.gather(1, sel_i)
+        st_pt_valid = pt_res.matched.gather(1, sel_i)
+        key_sg = torch.where(seg_matched, -take(ln_last_optim, seg_lm), ninf)
+        _, ssel_i = top_k_stable(key_sg, n_struct_segs)
+        st_ln_lm = seg_lm.gather(1, ssel_i)
+        st_ln_valid = seg_matched.gather(1, ssel_i)
 
-    def obs_of(obs_kf, obs_f, rows):
-        okf = take(obs_kf, rows).long()
-        kc = okf.clamp_min(0)
-        return struct_opt.StructObs(R_f_w=take(mt.kf_R, kc),
-                                    t_f_w=take(mt.kf_t, kc),
-                                    f_obs=take(obs_f, rows), valid=okf >= 0)
+        def obs_of(obs_kf, obs_f, rows):
+            okf = take(obs_kf, rows).long()
+            kc = okf.clamp_min(0)
+            return struct_opt.StructObs(R_f_w=take(mt.kf_R, kc),
+                                        t_f_w=take(mt.kf_t, kc),
+                                        f_obs=take(obs_f, rows),
+                                        valid=okf >= 0)
 
-    def rows_of(*xs):
-        a = torch.cat(xs, 1)
-        return a.reshape((-1,) + a.shape[2:])
+        def rows_of(*xs):
+            a = torch.cat(xs, 1)
+            return a.reshape((-1,) + a.shape[2:])
 
-    parts = [obs_of(mt.pt_obs_kf, mt.pt_obs_f, st_pt_lm),
-             obs_of(mt.ln_obs_kf, mt.ln_obs_sf, st_ln_lm),
-             obs_of(mt.ln_obs_kf, mt.ln_obs_ef, st_ln_lm)]
-    all_obs = struct_opt.StructObs(*[rows_of(*xs) for xs in zip(*parts)])
-    all_pos = rows_of(take(mt.pt_pos, st_pt_lm), take(mt.ln_spos, st_ln_lm),
-                      take(mt.ln_epos, st_ln_lm))
-    all_valid = rows_of(st_pt_valid, st_ln_valid, st_ln_valid)
-    all_new, all_impr = struct_opt.optimize_points(all_pos, all_obs, all_valid,
-                                                   n_iter=struct_iters)
-    all_new = all_new.reshape(B, -1, 3)
-    all_impr = all_impr.reshape(B, -1)
+        parts = [obs_of(mt.pt_obs_kf, mt.pt_obs_f, st_pt_lm),
+                 obs_of(mt.ln_obs_kf, mt.ln_obs_sf, st_ln_lm),
+                 obs_of(mt.ln_obs_kf, mt.ln_obs_ef, st_ln_lm)]
+        all_obs = struct_opt.StructObs(*[rows_of(*xs) for xs in zip(*parts)])
+        all_pos = rows_of(take(mt.pt_pos, st_pt_lm),
+                          take(mt.ln_spos, st_ln_lm),
+                          take(mt.ln_epos, st_ln_lm))
+        all_valid = rows_of(st_pt_valid, st_ln_valid, st_ln_valid)
+        all_new, all_impr = struct_opt.optimize_points(
+            all_pos, all_obs, all_valid, n_iter=struct_iters)
+        all_new = all_new.reshape(B, -1, 3)
+        all_impr = all_impr.reshape(B, -1)
     Kp, Kl = n_struct_pts, n_struct_segs
     return FusedResult(
         R_f_w=pres.R, t_f_w=pres.t, cov=pres.cov,
@@ -610,44 +621,53 @@ def _track_frame_step_impl(last_pyr, cur_pyr, kf_flat, last: LastFrameTables,
     res = track_frame_core(last_pyr, cur_pyr, kf_flat, last, R_last, t_last,
                            mt, pt_last_optim, ln_last_optim, fx, fy, cx, cy,
                            **kw)
-    R_w_kf = mt.kf_R.transpose(-1, -2)
-    t_w_kf = -torch.einsum("bkji,bkj->bki", mt.kf_R, mt.kf_t)
-    R_w_cur = res.R_f_w.transpose(-1, -2)
-    t_w_cur = -(R_w_cur @ res.t_f_w[..., None])[..., 0]
-    pt_conv = ln_conv = None
-    if update_pt_seeds or update_ln_seeds:
-        # only the live prefix of each table is processed (free rows are
-        # allocated lowest-first); the tail is carried as it is
-        Wp = (pt_width or pt_seeds.mu.shape[1]) if update_pt_seeds else 0
-        Wl = (ln_width or ln_seeds.mu_s.shape[1]) if update_ln_seeds else 0
-        pres, lres = df.update_seeds_combined(
-            df.PointSeeds(*[a[:, :Wp] for a in pt_seeds]) if update_pt_seeds else None,
-            df.LineSeeds(*[a[:, :Wl] for a in ln_seeds]) if update_ln_seeds else None,
-            R_w_kf, t_w_kf, kf_flat, cur_pyr[:n_pyr_seed], R_w_cur, t_w_cur,
-            fx, fy, cx, cy, batch_counter, has_pt=update_pt_seeds,
-            has_ln=update_ln_seeds, max_seed_kfs=max_seed_kfs,
-            sigma_conv_factor=sigma_conv_factor, max_search=seed_search_budget,
-            n_epi_steps=n_epi_steps, pt_work=seed_work_budget)
+    with span("update_seeds"):
+        R_w_kf = mt.kf_R.transpose(-1, -2)
+        t_w_kf = -torch.einsum("bkji,bkj->bki", mt.kf_R, mt.kf_t)
+        R_w_cur = res.R_f_w.transpose(-1, -2)
+        t_w_cur = -(R_w_cur @ res.t_f_w[..., None])[..., 0]
+        pt_conv = ln_conv = None
+        if update_pt_seeds or update_ln_seeds:
+            # only the live prefix of each table is processed (free rows are
+            # allocated lowest-first); the tail is carried as it is
+            Wp = (pt_width or pt_seeds.mu.shape[1]) if update_pt_seeds else 0
+            Wl = (ln_width or ln_seeds.mu_s.shape[1]) if update_ln_seeds else 0
+            pt_in = (df.PointSeeds(*[a[:, :Wp] for a in pt_seeds])
+                     if update_pt_seeds else None)
+            ln_in = (df.LineSeeds(*[a[:, :Wl] for a in ln_seeds])
+                     if update_ln_seeds else None)
+            pres, lres = df.update_seeds_combined(
+                pt_in, ln_in, R_w_kf, t_w_kf, kf_flat, cur_pyr[:n_pyr_seed],
+                R_w_cur, t_w_cur, fx, fy, cx, cy, batch_counter,
+                has_pt=update_pt_seeds, has_ln=update_ln_seeds,
+                max_seed_kfs=max_seed_kfs,
+                sigma_conv_factor=sigma_conv_factor,
+                max_search=seed_search_budget, n_epi_steps=n_epi_steps,
+                pt_work=seed_work_budget)
 
-        def at(a, r, w):
-            return a.gather(1, r.clamp_max(w - 1))
+            def at(a, r, w):
+                return a.gather(1, r.clamp_max(w - 1))
 
-        if update_pt_seeds:
-            pt_seeds = df.PointSeeds(*[torch.cat([new, old[:, Wp:]], 1)
-                                       for new, old in zip(pres.seeds, pt_seeds)])
-            rows = nonzero_padded(pres.converged, CONV_BUDGET,
-                                  pt_seeds.mu.shape[1])
-            pt_conv = (rows, at(pres.depth_converged, rows, Wp),
-                       pres.converged.sum(-1), pack_bits16(pt_seeds.alive),
-                       pres.skipped.sum(-1))
-        if update_ln_seeds:
-            ln_seeds = df.LineSeeds(*[torch.cat([new, old[:, Wl:]], 1)
-                                      for new, old in zip(lres.seeds, ln_seeds)])
-            rows = nonzero_padded(lres.converged, CONV_BUDGET,
-                                  ln_seeds.mu_s.shape[1])
-            ln_conv = (rows, at(lres.depth_s, rows, Wl),
-                       at(lres.depth_e, rows, Wl), lres.converged.sum(-1),
-                       pack_bits16(ln_seeds.alive), lres.skipped.sum(-1))
+            if update_pt_seeds:
+                pt_seeds = df.PointSeeds(*[
+                    torch.cat([new, old[:, Wp:]], 1)
+                    for new, old in zip(pres.seeds, pt_seeds)])
+                rows = nonzero_padded(pres.converged, CONV_BUDGET,
+                                      pt_seeds.mu.shape[1])
+                pt_conv = (rows, at(pres.depth_converged, rows, Wp),
+                           pres.converged.sum(-1),
+                           pack_bits16(pt_seeds.alive), pres.skipped.sum(-1))
+            if update_ln_seeds:
+                ln_seeds = df.LineSeeds(*[
+                    torch.cat([new, old[:, Wl:]], 1)
+                    for new, old in zip(lres.seeds, ln_seeds)])
+                rows = nonzero_padded(lres.converged, CONV_BUDGET,
+                                      ln_seeds.mu_s.shape[1])
+                ln_conv = (rows, at(lres.depth_s, rows, Wl),
+                           at(lres.depth_e, rows, Wl),
+                           lres.converged.sum(-1),
+                           pack_bits16(ln_seeds.alive),
+                           lres.skipped.sum(-1))
     nxt = None
     if emit_next:
         nxt = build_next_inputs(res, mt, pt_last_optim, ln_last_optim,

@@ -1,4 +1,4 @@
-"""Profiling plane: named stage timers + per-frame metric records.
+"""Profiling plane: named spans and counters in per-frame records.
 
 Replacement of the reference trace plane — vk::PerformanceMonitor
 with SVO_START_TIMER/SVO_LOG channels (reference: include/plsvo/global.h:102-117,
@@ -9,29 +9,54 @@ registration src/frame_handler_base.cpp:58-86: timers `pyramid_creation`,
 compiles its tracing out (SVO_TRACE never defined, SURVEY §5.1); here it is
 always available and cheap.
 
+A span (`PerformanceMonitor.timer`, or the module's `span` in code that
+has no handler) sums its host wall time per frame. While a torch profiler
+is active it also opens a profiler range named `plsvo.<name>`,
+so the spans sit on the device trace's clock and the kernels they launch
+can be attributed to them. `count` sums host integers per frame.
+
 Kernel-level device profiling is `device_trace` (torch.profiler) around a
-run; the timers here are host wall clock.
+run.
 """
 from __future__ import annotations
 
 import contextlib
-import json
+import contextvars
 import time
-from collections import defaultdict
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import torch
+
+RANGE_PREFIX = "plsvo."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A profiler range for the span, or a no-op when no profiler records.
+    The C-side flag is the one to test: a profiler started through
+    torch.autograd._enable_profiler leaves the Python-side flag False.
+    The range is a function-scope record, on the host alone: a user-scope
+    one (torch.profiler.record_function) is mirrored on the card as a
+    `gpu_user_annotation` event from its first kernel to its last, which
+    a reader of the device's activity would count as busy time."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(RANGE_PREFIX + name)
+    return _NO_SPAN
 
 
 @dataclass
 class PerformanceMonitor:
-    """Per-frame stage timers + scalar log channels (vk::PerformanceMonitor
-    analogue). Call new_frame() per iteration; timers accumulate within the
-    frame; dump writes JSONL traces (Config::traceDir analogue)."""
+    """Per-frame spans, counters and scalar log channels
+    (vk::PerformanceMonitor analogue). Call new_frame() per iteration;
+    spans and counters accumulate within the frame, and each finished
+    frame's record (`frames`) holds them as `t_<span>` (seconds),
+    `n_<counter>` and the log channels by name."""
 
     timers: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
     logs: Dict[str, float] = field(default_factory=dict)
     frames: List[dict] = field(default_factory=list)
-    _starts: Dict[str, float] = field(default_factory=dict)
     # the frame the timers and logs belong to: -1 until new_frame, so a
     # log before the first frame (a harvest right after a checkpoint load)
     # is recorded rather than failing (the JAX package's class has no
@@ -39,22 +64,29 @@ class PerformanceMonitor:
     _frame_id: int = -1
 
     def new_frame(self, frame_id: int):
-        if self.timers or self.logs:
+        if self.timers or self.counts or self.logs:
             self.frames.append(
                 {"frame": self._frame_id, **{f"t_{k}": v for k, v in self.timers.items()},
-                 **self.logs})
+                 **{f"n_{k}": v for k, v in self.counts.items()}, **self.logs})
         self.timers = {}
+        self.counts = {}
         self.logs = {}
         self._frame_id = frame_id
 
     @contextlib.contextmanager
     def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timers[name] = self.timers.get(name, 0.0) + (
-                time.perf_counter() - t0)
+        """The span `name`: its host wall time is added to the frame's
+        `t_<name>`."""
+        with _range(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.timers[name] = self.timers.get(name, 0.0) + (
+                    time.perf_counter() - t0)
+
+    def count(self, name: str, n: int):
+        self.counts[name] = self.counts.get(name, 0) + int(n)
 
     def log(self, name: str, value):
         self.logs[name] = float(value)
@@ -62,20 +94,37 @@ class PerformanceMonitor:
     def finish(self):
         self.new_frame(-1)
 
-    def dump(self, path: str):
-        self.finish()
-        with open(path, "w") as fh:
-            for rec in self.frames:
-                fh.write(json.dumps(rec) + "\n")
+    @contextlib.contextmanager
+    def installed(self):
+        """Make this the monitor that the module's `span` and `count`
+        record into, for the duration of the block."""
+        token = _current.set(self)
+        try:
+            yield
+        finally:
+            _current.reset(token)
 
-    def summary(self) -> Dict[str, float]:
-        """Mean per-stage milliseconds over recorded frames."""
-        acc = defaultdict(list)
-        for rec in self.frames:
-            for k, v in rec.items():
-                if k.startswith("t_"):
-                    acc[k].append(v)
-        return {k: 1000.0 * sum(v) / len(v) for k, v in acc.items() if v}
+
+# the monitor of the frame being processed (FrameHandlerMono.add_image
+# installs its own), for code that has no handler: the fused step and ops.
+# A context variable, so that threads do not see each other's
+_current: contextvars.ContextVar[Optional[PerformanceMonitor]] = (
+    contextvars.ContextVar("plsvo_monitor", default=None))
+
+
+def span(name: str):
+    """The current monitor's span `name`; without a monitor, only the
+    profiler's range (nothing at all when no profiler records)."""
+    m = _current.get()
+    return m.timer(name) if m is not None else _range(name)
+
+
+def count(name: str, n: int):
+    """Add n to the current monitor's counter `name` (nothing without
+    one)."""
+    m = _current.get()
+    if m is not None:
+        m.count(name, n)
 
 
 @contextlib.contextmanager
@@ -87,7 +136,6 @@ def device_trace(log_dir: str):
     path is its `trace_path` once the block has ended."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
