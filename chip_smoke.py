@@ -21,10 +21,11 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                on LINEONLY_FRAMES frames of a line-rich texture
                (LINEONLY_TEX), BA on. Each run first in an untimed pass
                that captures every K2 launch's inputs (tagged by call
-               site) and every local BA problem, then timed, with the
-               launch counts set to 0 just before the timed run and read
-               just after it. Gates: DEFAULT reached and kept, ATE < 1% of
-               the path, at least one local BA solve where BA is on; with
+               site), 1 in K3_EVERY K3 launches' and every local BA
+               problem, then timed, with the launch counts set to 0 just
+               before the timed run and read just after it. Gates: DEFAULT
+               reached and kept, ATE < 1% of the path, one K3 launch per
+               tracked frame, at least one local BA solve where BA is on; with
                points one K1 launch per keyframe detection, in line-only
                mode no K1 launch, align2d_atlas in every tracked frame and
                K2 only in the seed update; with lines line seeds installed
@@ -145,6 +146,14 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                plain twin's iterate at its own stop (k2_compare); a
                launch that fails leaves its inputs in chiprun_out/
                (k2_replay replays such a file on the CPU)
+  7a. K3      — the sparse image alignment kernel vs its plain twin on the
+               inputs of the K3 launches captured in 5, 6, 6b and 6e (1 in
+               K3_EVERY each): poses within K3_ROT_ATOL rad / K3_T_ATOL,
+               seg_alive and the tracked counts equal, each level's
+               iterations equal but where the two sides part at a
+               chi2-increase test within float32 rounding (k3_compare);
+               prints the largest differences and every call whose
+               iterations differ
   7b. K1 batched — the largest batched keyframe detection's R x 3 images:
                masks equal, scores within rtol 1e-4 / atol 1e-3 more than
                8 px from the border; per-call, device and plain times
@@ -163,7 +172,9 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                every call site and N of the three sync runs, the batched
                and mesh runs and phase 6f: the launch count, the launch
                with the most valid rows (device, per-call, plain, bound)
-               and the median and max device time over the launches;
+               and the median and max device time over the launches; K3
+               at the lines run's and the batched run's last captured call
+               (per-call, device, plain, bound);
                detect_fast_grid's, detect_segments_tiled's,
                align_mixed_atlas's and align2d_atlas's per-call times
   11. report — one JSON line per the kernel report format, the card line,
@@ -446,19 +457,21 @@ def _patched(patches):
     return undo
 
 
-def capture_pass(cam, imgs, device, n_main, cfg):
+def capture_pass(cam, imgs, device, n_main, cfg, run):
     """The run's frames through a handler of its own, untimed, capturing
-    the inputs of every K2 launch (tagged by call site), of the first
-    reprojection call of align_mixed_atlas and of align2d_atlas, of every
-    local BA solve, and the counts of every guarded BA write-back."""
+    the inputs of every K2 launch (tagged by call site), of 1 in K3_EVERY
+    K3 launches (tagged by `run`), of the first reprojection call of
+    align_mixed_atlas and of align2d_atlas, of every local BA solve, and
+    the counts of every guarded BA write-back."""
     import torch
 
     from plsvo_torch.ops import depth_filter, matcher
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.parallel import ba
     from plsvo_torch.pipeline.frame_handler import FrameHandlerMono
 
-    out = dict(k2=[], atlas={}, ba=[], write_backs=[])
+    out = dict(k2=[], atlas={}, ba=[], write_backs=[], k3=[])
     site = ["other"]
 
     def clone(x):
@@ -508,7 +521,8 @@ def capture_pass(cam, imgs, device, n_main, cfg):
                (ba, "bundle_adjust_blob", ba_capture(ba.bundle_adjust_blob)),
                (ba, "write_back_window",
                 write_back_capture(ba.write_back_window)),
-               (ma, "capture", k2_capture)]
+               (ma, "capture", k2_capture),
+               (sa, "capture", k3_capture_hook(out["k3"], run))]
     patches += [(o, a, at_site(getattr(o, a), label))
                 for o, a, label in _call_sites()]
     undo = _patched(patches)
@@ -530,13 +544,14 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import matcher
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
                                                     FrameHandlerMono)
     from plsvo_torch.pipeline.state import MapState
     from plsvo_torch.utils import trajectory
 
     cfg = run_config(kind)
-    cap = capture_pass(cam, imgs, device, n_main, cfg)
+    cap = capture_pass(cam, imgs, device, n_main, cfg, kind)
 
     created = []  # frame of every line landmark made from a converged seed
     a2d_frames = []  # frame of every align2d_atlas call
@@ -560,9 +575,12 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
                      (matcher, "align2d_atlas", counting_align2d)])
     fs.launches = 0
     ma.launches = 0
+    sa.launches = 0
+    k3_frames = 0  # frames that entered the tracked-frame step
     try:
         for i in range(n_main):
             k1_before = fs.launches
+            k3_frames += vo.stage == STAGE_DEFAULT
             frame_now[0] = i
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -574,7 +592,8 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
                 ln_installs.append(int((vo._lnseed_install_frame == i).sum()))
             if r.stage == STAGE_DEFAULT and r.is_keyframe:
                 k1_at_kf.append(fs.launches - k1_before)
-        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
+                    "sparse_align": sa.launches}
     finally:
         undo()
     gt_centers = gt_centers[:n_main]
@@ -620,6 +639,9 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
         fail(f"{kind}: ATE {ate} >= 1% of the path length {path}")
     if launches["mixed_align"] <= 0:
         fail(f"{kind}: K2 never launched: {launches}")
+    if launches["sparse_align"] != k3_frames or not k3_frames:
+        fail(f"{kind}: {launches['sparse_align']} K3 launches over "
+             f"{k3_frames} tracked frames, not one each")
     if kind == "lineonly":
         # no point detector: K1 never runs; every tracked frame refines its
         # points and endpoints through align2d_atlas, so K2 runs only in
@@ -689,7 +711,8 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
           f"DEFAULT calls): {bench_mean:.2f} / {bench_p90:.2f} ms", flush=True)
     return dict(vo=vo, launches=launches, n_frames=len(results), kind=kind,
                 results=results, bench_mean=bench_mean, bench_p90=bench_p90,
-                captured=cap["k2"], atlas_calls=cap["atlas"], ba=cap["ba"],
+                captured=cap["k2"], captured_k3=cap["k3"],
+                atlas_calls=cap["atlas"], ba=cap["ba"],
                 write_backs=cap["write_backs"], ate=ate, path=path,
                 ms_median=float(np.median(ms_tail)),
                 ms_p90=float(np.percentile(ms_tail, 90)),
@@ -743,6 +766,7 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
     flush(). Gates and report as in the module docstring."""
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.pipeline import fused
     from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
                                                     FrameHandlerMono)
@@ -750,7 +774,7 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
 
     kind = "pipelined"
     cfg = run_config(kind)
-    cap = capture_pass(cam, imgs, device, n_main, cfg)
+    cap = capture_pass(cam, imgs, device, n_main, cfg, kind)
     vo = FrameHandlerMono(cam, cfg, device=device)
     deferred_k1, installs, solves, write_backs = [], [], [], []
     detect, seed_init = vo._queue_or_dispatch_detection, vo._complete_seed_init
@@ -792,9 +816,11 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
 
     fs.launches = 0
     ma.launches = 0
+    sa.launches = 0
     for i in range(n_main):
         track(i)
-    launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+    launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
+                "sparse_align": sa.launches}
     bench_mean, bench_p90 = bench_stat(stages, ms)
     n_all = n_main + PIPE_DEPTH
     wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
@@ -855,8 +881,8 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
              if busy_ms > 0 else "not measured (the profiler saw no device time)")
           + f"; per frame: {n_launch / n:.0f} kernel launches, {n_sync / n:.1f} "
           "host syncs", flush=True)
-    return dict(launches=launches, captured=cap["k2"], ate=ate, path=path,
-                bench_mean=bench_mean, bench_p90=bench_p90,
+    return dict(launches=launches, captured=cap["k2"], captured_k3=cap["k3"],
+                ate=ate, path=path, bench_mean=bench_mean, bench_p90=bench_p90,
                 n_deferred=len(deferred_k1), n_write_backs=len(write_backs),
                 kind=kind)
 
@@ -1416,6 +1442,146 @@ def phase_k2(captured):
     return out
 
 
+# K3 (sparse image alignment) against its plain twin on the same inputs:
+# the poses within these (the card sums the 6x6 system in another order),
+# and a level's iteration count equal unless the two sides part at a
+# chi2-increase test whose relative chi2 step is float32 rounding
+K3_ROT_ATOL = 1e-4  # rad
+K3_T_ATOL = 1e-4
+K3_CHI2_TIE = 1e-4
+K3_EVERY = 4  # the gate re-runs 1 in K3_EVERY alignment calls
+
+
+def k3_compare(out_k, trace_k, out_p):
+    """The kernel's AlignResult (with its per-iteration trace: chi2, max
+    |x|) against the plain twin's on the same inputs. The poses must be
+    finite and within K3_ROT_ATOL / K3_T_ATOL, seg_alive and the tracked
+    counts equal, and each level's iterations equal, but for one exception
+    per sequence: at the first level where the counts differ, the two sides
+    may part at iteration p = min(counts) >= 2 when the kernel's chi2 moved
+    by at most K3_CHI2_TIE (relative) from iteration p - 1 to p, so that
+    its chi2-increase test lies within float32 rounding; the later levels
+    start from the parted poses and are not compared. Returns (problem or
+    None, rotation err (rad), translation err, [(sequence, level index,
+    kernel iters, plain iters, relative chi2 step)] of the partings)."""
+    import torch
+
+    Rk, Rp = out_k.R.double().cpu(), out_p.R.double().cpu()
+    tk, tp = out_k.t.double().cpu(), out_p.t.double().cpu()
+    if not (bool(torch.isfinite(Rk).all()) and bool(torch.isfinite(tk).all())):
+        return "K3 returned a non-finite pose", float("nan"), float("nan"), []
+    # the angle of Rk' Rp from its chord, exact for rotations
+    chord = torch.linalg.norm((Rk - Rp).reshape(-1, 9), dim=-1) / (2 * 2 ** 0.5)
+    rot = 2 * torch.asin(chord.clamp(max=1.0))
+    rot_err = float(rot.max()) if rot.numel() else 0.0
+    t_err = float((tk - tp).abs().max()) if tk.numel() else 0.0
+    problem = None
+    if rot_err > K3_ROT_ATOL or t_err > K3_T_ATOL:
+        problem = (f"K3 pose differs from the plain twin's by {rot_err:.3e} rad "
+                   f"/ {t_err:.3e} (limits {K3_ROT_ATOL} / {K3_T_ATOL})")
+    for name in ("seg_alive", "n_tracked_pts", "n_tracked_segs"):
+        a = getattr(out_k, name).cpu()
+        b = getattr(out_p, name).cpu().to(a.dtype)
+        if problem is None and not torch.equal(a, b):
+            problem = f"K3 {name} {a.tolist()} against {b.tolist()}"
+    ik, ip = out_k.iters.cpu().tolist(), out_p.iters.cpu().tolist()
+    chi2 = trace_k[..., 0].double().cpu()
+    partings = []
+    for b, (lk, lp) in enumerate(zip(ik, ip)):
+        for lv, (nk, np_) in enumerate(zip(lk, lp)):
+            if nk == np_:
+                continue
+            p = min(nk, np_)
+            step = (float(abs(chi2[b, lv, p - 1] - chi2[b, lv, p - 2])
+                          / abs(chi2[b, lv, p - 2]).clamp_min(1e-30))
+                    if p >= 2 else float("inf"))
+            partings.append((b, lv, nk, np_, step))
+            if problem is None and not step <= K3_CHI2_TIE:
+                problem = (f"K3 sequence {b} level index {lv}: {nk} "
+                           f"iterations on the card, {np_} in the plain twin, "
+                           f"at a relative chi2 step {step:.3e} (> "
+                           f"{K3_CHI2_TIE}: not a rounding tie)")
+            break
+    return problem, rot_err, t_err, partings
+
+
+def k3_capture_hook(captured, run, every=K3_EVERY):
+    """A sparse_align.capture hook that keeps 1 in `every` launches' inputs
+    (the levels the call reads, cloned) as (args, kwargs, run)."""
+    import torch
+
+    seen = [0]
+
+    def clone(x):
+        if x is None:
+            return None
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*[clone(v) for v in x])
+        return x
+
+    def hook(args, kwargs):
+        seen[0] += 1
+        if (seen[0] - 1) % every:
+            return
+        lv = set(kwargs["levels"])
+        pyrs = [[p.clone() if i in lv else None for i, p in enumerate(pyr)]
+                for pyr in args[:2]]
+        captured.append((tuple(pyrs) + tuple(clone(a) for a in args[2:]),
+                         dict(kwargs), run))
+    return hook
+
+
+def k3_bound_ms(args, kw, iters):
+    """The least time of a K3 call on the card, (ms, "bytes" or
+    "operations"): each level image read once and the row tables read once
+    (f32), against ~20 operations per tap and ~130 per row (its 21 + 6
+    normal-equation terms) in every iteration the call ran."""
+    levels = kw["levels"]
+    pts, segs = args[2], args[3]
+    B, N = pts.xyz_ref.shape[:2]
+    rows = N + segs.xyz_ref.shape[1] * segs.xyz_ref.shape[2]
+    nbytes = 4 * sum(args[k][lv].numel() for k in (0, 1) for lv in levels)
+    nbytes += sum(4 * x.numel() for x in (*pts, *segs) if x is not None)
+    ops = int(iters.sum()) * rows * (16 * 20 + 130)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_k3(captured):
+    """Every captured alignment call, re-run by K3 and by the plain twin on
+    the card and held to each other by k3_compare. Prints, per run, the
+    calls checked, the largest rotation and translation differences and
+    the calls whose iterations differ."""
+    import torch
+
+    from plsvo_torch.ops import sparse_align as sa
+
+    if not captured:
+        fail("K3: no alignment call was captured")
+    out = {}
+    for i, (args, kw, run) in enumerate(captured):
+        out_k, trace = sa.sparse_img_align_cuda(*args, **kw)
+        out_p = sa.sparse_img_align_plain(*args, **kw)
+        torch.cuda.synchronize()
+        problem, rot, terr, partings = k3_compare(out_k, trace, out_p)
+        if problem:
+            fail(f"{problem} ({run} run, captured call {i}, B="
+                 f"{args[4].shape[0]}, levels {kw['levels']})")
+        for b, lv, nk, np_, step in partings:
+            print(f"K3 {run} call {i}: sequence {b} level index {lv} ran {nk} "
+                  f"iterations on the card and {np_} in the plain twin (chi2 "
+                  f"step {step:.2e} relative: a rounding tie)", flush=True)
+        n, r, t, n_part = out.get(run, (0, 0.0, 0.0, 0))
+        out[run] = (n + 1, max(r, rot), max(t, terr), n_part + bool(partings))
+    for run, (n, r, t, n_part) in out.items():
+        print(f"K3 {run}: {n} calls checked against the plain twin, rotation "
+              f"max diff {r:.3e} rad, translation {t:.3e}; {n_part} calls "
+              f"whose iterations differ", flush=True)
+    return out
+
+
 def _stage_hooks():
     """(owner, attribute, label) of the stages of a tracked frame and of a
     keyframe, as the frame handler reaches them (outermost calls only)."""
@@ -1541,7 +1707,7 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
     n_all = n_main + PIPE_DEPTH
     n_pyr = cfg.pipeline.n_pyr_levels
     bvo = BatchedVO(cam, cfg, B, mode="vmap", device=device)
-    captured, k1_inputs, drains = [], [], []
+    captured, k1_inputs, drains, captured_k3 = [], [], [], []
     site = ["other"]
 
     def k2_capture(args, kwargs):
@@ -1586,6 +1752,8 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
         return wrapped
 
     undo = _patched([(ma, "capture", k2_capture),
+                     (sparse_align, "capture",
+                      k3_capture_hook(captured_k3, kind)),
                      (fs, "fast_score_levels", levels_capture),
                      (sparse_align, "sparse_img_align",
                       keep_call("sparse_img_align",
@@ -1596,9 +1764,11 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
     try:
         fs.launches = 0
         ma.launches = 0
+        sparse_align.launches = 0
         for i in range(n_main):
             track(i)
-        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
+                    "sparse_align": sparse_align.launches}
         timed = list(calls)
         wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
             lambda: [track(i) for i in range(n_main, n_all)])
@@ -1691,10 +1861,13 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
                  f"handler's (limit {SOLO_TOL_M})")
     gn = gn_iterations(gn_calls)
     for name, (it_b, it_s) in gn.items():
+        how = ("K3 runs each sequence's own; a loop to the slowest member "
+               "would run" if name == "sparse_img_align"
+               else "the frozen carries cost")
         print(f"{kind}: {name} of the last batched step: {it_b} GN "
               f"iterations for the batch (every level, the slowest member's "
               f"stop) against {it_s} for its sequences alone (mean "
-              f"{np.mean(it_s):.1f}): the frozen carries cost "
+              f"{np.mean(it_s):.1f}): {how} "
               f"{100 * (it_b / np.mean(it_s) - 1):.1f}% more iterations than "
               "a sequence's own", flush=True)
     dflt = [ms for ms, ok in timed if ok]
@@ -1714,7 +1887,8 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
              if busy_ms > 0 else "not measured (the profiler saw no device time)")
           + f"; per batched step: {n_launch / n:.0f} kernel launches, "
           f"{n_sync / n:.1f} host syncs", flush=True)
-    return dict(kind=kind, captured=captured, launches=launches, fps=fps,
+    return dict(kind=kind, captured=captured, captured_k3=captured_k3,
+                launches=launches, fps=fps,
                 gn=gn, delivered=delivered,
                 k1_inputs=k1_inputs, drains=drains, ates=ates, paths=paths,
                 solo_err=solo_err, launches_per_step=n_launch / n,
@@ -1725,13 +1899,20 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
 
 def gn_iterations(calls):
     """GN iterations (one 6x6 solve each) of each captured batched call of
-    sparse_img_align / optimize_pose, run again for the batch and for each
-    of its sequences alone: {name: (batch iterations, [per sequence])}."""
+    sparse_img_align / optimize_pose: {name: (batch iterations, [per
+    sequence])}. The alignment's come from one K3 run of the call (each
+    sequence leaves its loop on its own; the batch's are what a loop to the
+    slowest member would run, the levels' maxima summed); optimize_pose
+    runs again for the batch and for each of its sequences alone."""
     from plsvo_torch.ops import pose_opt, sparse_align
 
     out = {}
     for name, (a, k) in sorted(calls.items()):
-        mod = sparse_align if name == "sparse_img_align" else pose_opt
+        if name == "sparse_img_align":
+            it = sparse_align.sparse_img_align(*a, **k).iters
+            out[name] = (int(it.amax(0).sum()), it.sum(-1).tolist())
+            continue
+        mod = pose_opt
         n = [0]
         orig = mod.solve_psd
 
@@ -1743,18 +1924,10 @@ def gn_iterations(calls):
         try:
             getattr(mod, name)(*a, **k)
             it_b, it_s = n[0], []
-            B = a[4 if name == "sparse_img_align" else 1].shape[0]
-            for b in range(B):
+            for b in range(a[1].shape[0]):
                 n[0] = 0
-                if name == "sparse_img_align":
-                    one = ([p[b] for p in a[0]], [p[b] for p in a[1]],
-                           type(a[2])(*[x[b] for x in a[2]]),
-                           type(a[3])(*[None if x is None else x[b]
-                                        for x in a[3]]), a[4][b], a[5][b])
-                    mod.sparse_img_align(*one, *a[6:], **k)
-                else:
-                    mod.optimize_pose(type(a[0])(*[x[b] for x in a[0]]),
-                                      a[1][b], a[2][b], *a[3:], **k)
+                mod.optimize_pose(type(a[0])(*[x[b] for x in a[0]]),
+                                  a[1][b], a[2][b], *a[3:], **k)
                 it_s.append(n[0])
         finally:
             mod.solve_psd = orig
@@ -2136,6 +2309,7 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
     from plsvo_torch.config import fast_config
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.parallel import ba, distributed
     from plsvo_torch.parallel.dryrun import dryrun_multichip
     from plsvo_torch.parallel.mesh import Mesh, Shards
@@ -2162,7 +2336,7 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
     n_all = MESH_FRAMES + MESH_PROFILED
     mesh = Mesh([device, device], ("seq",))
     bvo = BatchedVO(cam, cfg, B, mesh=mesh, axis="seq")
-    captured, site = [], ["other"]
+    captured, site, captured_k3 = [], ["other"], []
     calls = []
 
     def k2_capture(args, kwargs):
@@ -2179,13 +2353,17 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
             if r is not None:
                 delivered[b].append(r)
 
-    undo = _patched([(ma, "capture", k2_capture)] + _site_patches(site))
+    undo = _patched([(ma, "capture", k2_capture),
+                     (sa, "capture", k3_capture_hook(captured_k3, kind))]
+                    + _site_patches(site))
     try:
         fs.launches = 0
         ma.launches = 0
+        sa.launches = 0
         for i in range(MESH_FRAMES):
             track(i)
-        launches = {"fast_score": fs.launches, "mixed_align": ma.launches}
+        launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
+                    "sparse_align": sa.launches}
         timed = list(calls)
         wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
             lambda: [track(i) for i in range(MESH_FRAMES, n_all)])
@@ -2195,7 +2373,7 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
                     delivered[b].append(r)
     finally:
         undo()
-    out.update(captured=captured, launches=launches)
+    out.update(captured=captured, captured_k3=captured_k3, launches=launches)
     if not launches["fast_score"] or not launches["mixed_align"]:
         fail(f"{kind}: kernel launches of the mesh run {launches}: each "
              "kernel must launch")
@@ -2945,6 +3123,8 @@ def main():
     k2 = phase_k2([c + (r["kind"],) for r in (sl, sp, so, spp, sb8, smesh,
                                               sapi)
                    for c in r["captured"]])
+    k3 = phase_k3([c for r in (sl, sp, so, spp, sb8, smesh)
+                   for c in r["captured_k3"]])
     k1b = phase_k1_batched(sb8["k1_inputs"])
     sb = phase_ba(sl, device)
     phase_profile(sl["vo"], imgs, n_main, n_win, sl["ms_median"])
@@ -3032,6 +3212,32 @@ def main():
           f"ms), plain {k2b_plain:.4f} ms, bound {k2b_bound:.6f} ms ({k2b_by}; "
           f"{100 * k2b_bound / k2b_dev:.1f}% of its device time)", flush=True)
 
+    # K3 at the lines run's last captured call (B = 1) and at the batched
+    # run's (B = BATCH): per call, device, plain, bound
+    from plsvo_torch.ops import sparse_align as sa
+
+    k3_t = {}
+    for run, res in (("lines", sl), ("batched", sb8)):
+        # the last captured call of the largest batch
+        a3, kw3, _ = max(reversed(res["captured_k3"]),
+                         key=lambda c: c[0][4].shape[0])
+        f3 = lambda a3=a3, kw3=kw3: sa.sparse_img_align_cuda(*a3, **kw3)  # noqa: E731
+        it3 = f3()[0].iters
+        bound3, by3 = k3_bound_ms(a3, kw3, it3)
+        k3_t[run] = dict(
+            B=int(a3[4].shape[0]), iters=it3.sum(-1).tolist(),
+            ms=cuda_time_ms(f3), kernel_ms=kernel_device_ms(
+                f3, "sparse_align_kernel"),
+            plain_ms=cuda_time_ms(
+                lambda a3=a3, kw3=kw3: sa.sparse_img_align_plain(*a3, **kw3),
+                reps=5, inner=2), bound_ms=bound3, bound_by=by3)
+        e = k3_t[run]
+        print(f"timing: K3 {run} call (B={e['B']}, iterations per sequence "
+              f"{e['iters']}): kernel {e['ms']:.4f} ms per call (device "
+              f"{e['kernel_ms']:.4f} ms), plain {e['plain_ms']:.4f} ms, bound "
+              f"{bound3:.6f} ms ({by3}; {100 * bound3 / e['kernel_ms']:.2f}% of "
+              f"its device time)", flush=True)
+
     nf = sl["n_frames"]
     k2_uv = max(e[2] for e in k2.values())
     k2_md = max(e[3] for e in k2.values())
@@ -3101,6 +3307,32 @@ def main():
          "bound_ms_batched": k2b_bound, "bound_by_batched": k2b_by,
          "launches_api": sapi["launches_api"],
          "shape_api": sapi["shape_api"]},
+        {"name": "sparse_align", "route": "cuda",
+         "source": "plsvo_torch/csrc/sparse_align.cu",
+         "replaces": "the XLA while_loop of plsvo_tpu/ops/sparse_align.py:262 "
+                     "(no Pallas kernel)",
+         "launches": sl["launches"]["sparse_align"],
+         "launches_per_frame": sl["launches"]["sparse_align"] / nf,
+         "launches_points_only": sp["launches"]["sparse_align"],
+         "launches_line_only": so["launches"]["sparse_align"],
+         "launches_pipelined": spp["launches"]["sparse_align"],
+         "launches_batched": sb8["launches"]["sparse_align"],
+         "launches_mesh": smesh["launches"]["sparse_align"],
+         "max_abs_err": max(e[1] for e in k3.values()),
+         "max_abs_err_kind": "rot_rad",
+         "max_err": max(e[2] for e in k3.values()), "max_err_kind": "abs_t",
+         "calls_iters_differ": sum(e[3] for e in k3.values()),
+         "calls_checked": sum(e[0] for e in k3.values()),
+         "ms": k3_t["lines"]["ms"], "kernel_ms": k3_t["lines"]["kernel_ms"],
+         "plain_ms": k3_t["lines"]["plain_ms"],
+         "bound_ms": k3_t["lines"]["bound_ms"],
+         "bound_by": k3_t["lines"]["bound_by"], "library_ms": None,
+         "shape": [k3_t["lines"]["B"]],
+         "shape_batched": [k3_t["batched"]["B"]],
+         "ms_batched": k3_t["batched"]["ms"],
+         "kernel_ms_batched": k3_t["batched"]["kernel_ms"],
+         "plain_ms_batched": k3_t["batched"]["plain_ms"],
+         "bound_ms_batched": k3_t["batched"]["bound_ms"]},
     ]}
     print(f"summary: lines run ATE {sl['ate']:.6f} m, per-frame ms median "
           f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f} (keyframe frames p90 "

@@ -37,6 +37,10 @@ SIGNATURES = {
     # (13 inputs, 3 outputs, N, n_iter, conv_eps, conv_sq, stream)
     "plsvo_mixed_align": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # (level pointer tables, (h, w) x 2 and scale table, n_levels, 10
+    # inputs, 8 outputs, scratch, B, N, M, K, n_iter, fx, fy, cx, cy, stream)
+    "plsvo_sparse_align": [_P, _P, _P, _P, _I] + [_P] * 19 + [_I] * 5
+                          + [_F] * 4 + [_P],
 }
 
 _lib = None
@@ -117,6 +121,11 @@ def load_library(verbose: bool = False):
         _lib = lib
         build_seconds = time.perf_counter() - t0
     return _lib
+
+
+def table(ctype, values):
+    """A C array of `values`, for a kernel's argument tables."""
+    return (ctype * len(values))(*values)
 
 
 def check(err: int, name: str):

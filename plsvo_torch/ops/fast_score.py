@@ -59,21 +59,18 @@ def _launch(imgs, threshold: float):
         for a in range(0, len(imgs), MAX_IMAGES):
             part = range(a, min(a + MAX_IMAGES, len(imgs)))
             _build.check(lib.plsvo_fast_score_levels(
-                _table(ctypes.c_void_p, [imgs[i].data_ptr() for i in part]),
-                _table(ctypes.c_void_p,
-                       [mask.data_ptr() + offs[i] for i in part]),
-                _table(ctypes.c_void_p,
-                       [score.data_ptr() + 4 * offs[i] for i in part]),
-                _table(ctypes.c_int, [d for i in part for d in imgs[i].shape]),
+                _build.table(ctypes.c_void_p,
+                             [imgs[i].data_ptr() for i in part]),
+                _build.table(ctypes.c_void_p,
+                             [mask.data_ptr() + offs[i] for i in part]),
+                _build.table(ctypes.c_void_p,
+                             [score.data_ptr() + 4 * offs[i] for i in part]),
+                _build.table(ctypes.c_int,
+                             [d for i in part for d in imgs[i].shape]),
                 len(part), float(threshold), stream),
                 "plsvo_fast_score_levels")
             launches += 1
     return mask, score, offs
-
-
-def _table(ctype, values):
-    """A C array of `values`, for the kernel's per-image argument tables."""
-    return (ctype * len(values))(*values)
 
 
 def fast_score_levels_cuda(imgs, threshold: float = 10.0):

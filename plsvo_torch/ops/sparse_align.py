@@ -3,17 +3,23 @@ SE(3) over point patches and line-segment samples.
 
 Port of `plsvo_tpu/ops/sparse_align.py`, with a leading batch axis in
 place of the JAX package's `vmap` (`parallel/batched.py`). The GN loop
-keeps the early exit (chi2-increase rollback, small-update stop): a
-stopped sequence's carry is frozen, and the loop reads on the host whether
-any sequence is still running, one sync per iteration on a GPU.
+keeps the early exit (chi2-increase rollback, small-update stop).
+`sparse_img_align` dispatches on the device: a CPU tensor takes the plain
+twin `sparse_img_align_plain` (a stopped sequence's carry is frozen, and
+the loop reads on the host whether any sequence is still running), any
+other tensor launches the CUDA kernel `csrc/sparse_align.cu` (every level
+and iteration in one launch, each sequence leaving its loop on its own,
+no host sync) or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from plsvo_torch import lie
+from plsvo_torch import _build, lie
 from plsvo_torch.batlin import solve_psd
 from plsvo_torch.image import gather_patch_windows, sample_patch_windows
 from plsvo_torch.indexing import seq_of_rows
@@ -41,6 +47,14 @@ class AlignResult(NamedTuple):
     n_tracked_segs: torch.Tensor
     seg_alive: torch.Tensor
     chi2: torch.Tensor
+    iters: torch.Tensor  # (B, n_levels) int32: GN iterations run per level
+
+
+launches = 0  # kernel launches (incremented only where the kernel launches)
+capture = None  # optional callable(args, kwargs) run before each launch
+MAX_LEVELS = 8  # pyramid levels per launch (the kernel's argument table)
+MAX_SAMPLES = 32  # samples per segment: one warp's lanes
+ROW_WORDS = 49  # the kernel's scratch words per row: 3 x 16 taps + a corner
 
 
 def jacobian_xyz2uv(xyz: torch.Tensor) -> torch.Tensor:
@@ -103,10 +117,9 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
 
     A leading batch axis on every input (levels (B, h, w), tables
     (B, N, ...), R_init (B, 3, 3)) aligns B sequences in one pass: each
-    sequence sums its own rows into its own 6x6 system. A sequence whose
-    loop has stopped keeps its carry frozen while the others iterate, as a
-    vmapped `lax.while_loop` does, so each sequence gets exactly the result
-    it gets alone. Unbatched inputs run as a batch of one."""
+    sequence sums its own rows into its own 6x6 system, and gets exactly
+    the result it gets alone. Unbatched inputs run as a batch of one. CPU
+    tensors take the plain twin, any other tensor the CUDA kernel."""
     if R_init.dim() == 2:
         res = sparse_img_align(
             [p[None] for p in pyr_ref], [p[None] for p in pyr_cur],
@@ -115,6 +128,22 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
             fx, fy, cx, cy, levels=levels, n_iter=n_iter,
             patch_size=patch_size)
         return AlignResult(*[a[0] for a in res])
+    args = (pyr_ref, pyr_cur, pts, segs, R_init, t_init, fx, fy, cx, cy)
+    kw = dict(levels=levels, n_iter=n_iter, patch_size=patch_size)
+    if pts.xyz_ref.device.type == "cpu":
+        return sparse_img_align_plain(*args, **kw)
+    return sparse_img_align_cuda(*args, **kw)[0]
+
+
+def sparse_img_align_plain(pyr_ref: Sequence[torch.Tensor],
+                           pyr_cur: Sequence[torch.Tensor], pts: AlignPoints,
+                           segs: AlignSegments, R_init, t_init, fx, fy, cx,
+                           cy, *, levels: Tuple[int, ...] = (4, 3, 2),
+                           n_iter: int = 30,
+                           patch_size: int = 4) -> AlignResult:
+    """The plain twin on batched inputs: a sequence whose loop has stopped
+    keeps its carry frozen while the others iterate, as a vmapped
+    `lax.while_loop` does; one host read per iteration on a card."""
     P = patch_size * patch_size
     f32 = torch.float32
     dev = pts.xyz_ref.device
@@ -128,6 +157,7 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
     n_seg_vis = torch.zeros(B, dtype=torch.int32, device=dev)
     chi2_out = torch.zeros(B, dtype=f32, device=dev)
     Jpt_frame = jacobian_xyz2uv(pts.xyz_ref)
+    iters = []
     adaptive = segs.p_ref is not None
 
     def _proj0(xyz):
@@ -191,6 +221,7 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
         chi2_prev = torch.full((B,), float("inf"), device=dev)
         alive = seg_alive
         done = torch.zeros(B, dtype=torch.bool, device=dev)
+        n_run = torch.zeros(B, dtype=torch.int32, device=dev)
         it = -1  # the loop runs it + 1 iterations
         for it in range(n_iter):
             _, uv_cur_all = _warp_project(R, t, xyz_all, fx, fy, cx, cy, scale)
@@ -248,19 +279,115 @@ def sparse_img_align(pyr_ref: Sequence[torch.Tensor],
             t = torch.where(done[:, None], t, t_out)
             chi2_prev = torch.where(done | worse, chi2_prev, chi2)
             alive = torch.where(done[:, None], alive, alive_new)
+            n_run = n_run + ~done
             done = done | stop
             if not bool((~done).any()):  # host sync: every sequence stopped
                 break
         count("align_iters", it + 1)
+        iters.append(n_run)
         chi2_out = chi2_prev
         seg_alive = alive
         n_pts_vis = vis_pt.sum(-1).to(torch.int32)
         n_seg_vis = (vis_sg & seg_alive).sum(-1).to(torch.int32)
 
+    iters = (torch.stack(iters, -1) if iters
+             else torch.zeros((B, 0), dtype=torch.int32, device=dev))
     return AlignResult(R=R, t=t, n_tracked_pts=n_pts_vis,
                        n_tracked_segs=n_seg_vis, seg_alive=seg_alive,
-                       chi2=chi2_out)
+                       chi2=chi2_out, iters=iters)
 
+
+def _on(x, dt, dev):
+    """x as a contiguous `dt` tensor on card `dev` (no copy when it is)."""
+    if x.device != dev:
+        raise ValueError(f"sparse_img_align_cuda: a tensor on {x.device}, "
+                         f"not on {dev}")
+    return x.to(dt).contiguous()
+
+
+def sparse_img_align_cuda(pyr_ref: Sequence[torch.Tensor],
+                          pyr_cur: Sequence[torch.Tensor], pts: AlignPoints,
+                          segs: AlignSegments, R_init, t_init, fx, fy, cx,
+                          cy, *, levels: Tuple[int, ...] = (4, 3, 2),
+                          n_iter: int = 30, patch_size: int = 4):
+    """Launch the CUDA kernel once on batched CUDA inputs: every level and
+    iteration of every sequence. Returns (AlignResult, trace), trace
+    (B, n_levels, n_iter, 2) each iteration's chi2 and max |x| (the rows
+    past a level's `iters` unwritten), for the card's parity checks. The
+    iteration counts reach the monitor's `align_iters` without a host
+    sync: the longest-running sequence's, summed over the levels."""
+    global launches
+    dev = pts.xyz_ref.device
+    if dev.type != "cuda":
+        raise ValueError(f"sparse_img_align_cuda needs CUDA tensors, got {dev}")
+    if patch_size != 4:
+        raise ValueError("the kernel is built for 4x4 patches")
+    lib = _build.load_library()
+    levels = tuple(int(lv) for lv in levels)
+    B, N = pts.xyz_ref.shape[:2]
+    M, K = segs.xyz_ref.shape[1], segs.xyz_ref.shape[2]
+    L = len(levels)
+    if L > MAX_LEVELS:
+        raise ValueError(f"at most {MAX_LEVELS} levels per launch, got {L}")
+    if M > 0 and not 1 <= K <= MAX_SAMPLES:
+        raise ValueError(f"1 to {MAX_SAMPLES} samples per segment, got {K}")
+    f32, b8 = torch.float32, torch.bool
+    refs = [_on(pyr_ref[lv], f32, dev) for lv in levels]
+    curs = [_on(pyr_cur[lv], f32, dev) for lv in levels]
+    for im in refs + curs:
+        if im.dim() != 3 or im.shape[0] != B:
+            raise ValueError(f"expected (B={B}, h, w) levels, got "
+                             f"{tuple(im.shape)}")
+    adaptive = segs.p_ref is not None
+    ins = [_on(pts.xyz_ref, f32, dev), _on(pts.uv_ref, f32, dev),
+           _on(pts.valid, b8, dev), _on(segs.xyz_ref, f32, dev),
+           _on(segs.uv_ref, f32, dev), _on(segs.valid, b8, dev),
+           _on(segs.p_ref, f32, dev) if adaptive else None,
+           _on(segs.q_ref, f32, dev) if adaptive else None,
+           _on(R_init, f32, dev), _on(t_init, f32, dev)]
+    # one allocation: R (B, 9) | t (B, 3) | chi2 (B,) | trace (B, L, n_iter,
+    # 2) f32, then iters (B, L) | n_pts (B,) | n_segs (B,) int32, then
+    # seg_alive (B, M) bool
+    n_iter = int(n_iter)
+    nf = B * (13 + 2 * L * n_iter)
+    ni = B * (L + 2)
+    out = torch.empty(4 * (nf + ni) + B * M, dtype=torch.uint8, device=dev)
+    fl = out[:4 * nf].view(f32)
+    it32 = out[4 * nf:4 * (nf + ni)].view(torch.int32)
+    R, t = fl[:9 * B].view(B, 3, 3), fl[9 * B:12 * B].view(B, 3)
+    chi2, trace = fl[12 * B:13 * B], fl[13 * B:].view(B, L, n_iter, 2)
+    iters = it32[:B * L].view(B, L)
+    n_pts, n_segs = it32[B * L:B * (L + 1)], it32[B * (L + 1):]
+    alive = out[4 * (nf + ni):].view(b8).view(B, M)
+    # per-sequence tap scratch, used when the rows do not fit in shared memory
+    scratch = torch.empty(B * (N + M * K) * ROW_WORDS, dtype=f32, device=dev)
+    hw, scales = [], []
+    for lv, r, c in zip(levels, refs, curs):
+        scale = 1.0 / (1 << lv)
+        hw += [*r.shape[1:], *c.shape[1:]]
+        scales += [scale, float(np.float32(float(fx) * scale))]
+    if capture is not None:
+        capture((pyr_ref, pyr_cur, pts, segs, R_init, t_init, fx, fy, cx, cy),
+                dict(levels=levels, n_iter=n_iter, patch_size=patch_size))
+    ptr = [0 if x is None else x.data_ptr() for x in ins]
+    # the C entry launches on the thread's current device: make it the
+    # inputs' (a mesh may hold shards on several cards)
+    with torch.cuda.device(dev):
+        _build.check(lib.plsvo_sparse_align(
+            _build.table(ctypes.c_void_p, [x.data_ptr() for x in refs]),
+            _build.table(ctypes.c_void_p, [x.data_ptr() for x in curs]),
+            _build.table(ctypes.c_int, hw),
+            _build.table(ctypes.c_float, scales), L,
+            *ptr, R.data_ptr(), t.data_ptr(), chi2.data_ptr(),
+            trace.data_ptr(), iters.data_ptr(), n_pts.data_ptr(),
+            n_segs.data_ptr(), alive.data_ptr(), scratch.data_ptr(), B, N, M,
+            K, n_iter, float(fx), float(fy), float(cx), float(cy),
+            torch.cuda.current_stream(dev).cuda_stream), "plsvo_sparse_align")
+        launches += 1
+        if B:
+            count("align_iters", iters[0] if B == 1 else iters.amax(0))
+    return AlignResult(R=R, t=t, n_tracked_pts=n_pts, n_tracked_segs=n_segs,
+                       seg_alive=alive, chi2=chi2, iters=iters), trace
 
 def make_align_points(uv, bearings, depths, valid) -> AlignPoints:
     """Point units: xyz_ref = bearing * depth, the distance-normalised

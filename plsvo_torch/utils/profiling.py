@@ -13,7 +13,8 @@ A span (`PerformanceMonitor.timer`, or the module's `span` in code that
 has no handler) sums its host wall time per frame. While a torch profiler
 is active it also opens a profiler range named `plsvo.<name>`,
 so the spans sit on the device trace's clock and the kernels they launch
-can be attributed to them. `count` sums host integers per frame.
+can be attributed to them. `count` sums integers per frame; a count
+given as a device tensor reaches the frame's record without a host sync.
 
 Kernel-level device profiling is `device_trace` (torch.profiler) around a
 run.
@@ -62,16 +63,42 @@ class PerformanceMonitor:
     # is recorded rather than failing (the JAX package's class has no
     # default here)
     _frame_id: int = -1
+    # the frame's tensor counts, (name, host copy, event or None), and the
+    # finished frames' records still waiting for theirs
+    _pending: list = field(default_factory=list)
+    _unresolved: list = field(default_factory=list)
 
     def new_frame(self, frame_id: int):
-        if self.timers or self.counts or self.logs:
-            self.frames.append(
-                {"frame": self._frame_id, **{f"t_{k}": v for k, v in self.timers.items()},
-                 **{f"n_{k}": v for k, v in self.counts.items()}, **self.logs})
+        if self.timers or self.counts or self.logs or self._pending:
+            rec = {"frame": self._frame_id,
+                   **{f"t_{k}": v for k, v in self.timers.items()},
+                   **{f"n_{k}": v for k, v in self.counts.items()},
+                   **self.logs}
+            self.frames.append(rec)
+            if self._pending:
+                self._unresolved.append((rec, self._pending))
         self.timers = {}
         self.counts = {}
         self.logs = {}
+        self._pending = []
         self._frame_id = frame_id
+        self._resolve(wait=False)
+
+    def _resolve(self, wait: bool):
+        """Add the tensor counts whose copies have landed (all of them,
+        waiting, when `wait`) to their frames' records."""
+        keep = []
+        for rec, pend in self._unresolved:
+            if not wait and not all(ev is None or ev.query()
+                                    for _, _, ev in pend):
+                keep.append((rec, pend))
+                continue
+            for name, host, ev in pend:
+                if wait and ev is not None:
+                    ev.synchronize()
+                key = f"n_{name}"
+                rec[key] = rec.get(key, 0) + int(host.sum())
+        self._unresolved = keep
 
     @contextlib.contextmanager
     def timer(self, name: str):
@@ -85,7 +112,16 @@ class PerformanceMonitor:
                 self.timers[name] = self.timers.get(name, 0.0) + (
                     time.perf_counter() - t0)
 
-    def count(self, name: str, n: int):
+    def count(self, name: str, n):
+        """Add n to the frame's counter `name`: an int, or a tensor whose
+        values sum to the count. A tensor on a card is copied to pinned
+        host memory without waiting; the frame's record gets its value once
+        the copy has landed (at a later new_frame, in the sync path the
+        next one, after the frame's fetch has waited on the card; or at
+        finish, which waits)."""
+        if torch.is_tensor(n):
+            self._pending.append((name, *_host_copy(n)))
+            return
         self.counts[name] = self.counts.get(name, 0) + int(n)
 
     def log(self, name: str, value):
@@ -93,6 +129,7 @@ class PerformanceMonitor:
 
     def finish(self):
         self.new_frame(-1)
+        self._resolve(wait=True)
 
     @contextlib.contextmanager
     def installed(self):
@@ -103,6 +140,20 @@ class PerformanceMonitor:
             yield
         finally:
             _current.reset(token)
+
+
+def _host_copy(t: torch.Tensor):
+    """(host tensor, event or None): t's values, from a card copied into
+    pinned memory on the current stream without waiting, with the event
+    recorded after the copy."""
+    if t.device.type != "cuda":
+        return t.detach().clone(), None
+    with torch.cuda.device(t.device):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+    return host, ev
 
 
 # the monitor of the frame being processed (FrameHandlerMono.add_image
@@ -119,9 +170,9 @@ def span(name: str):
     return m.timer(name) if m is not None else _range(name)
 
 
-def count(name: str, n: int):
-    """Add n to the current monitor's counter `name` (nothing without
-    one)."""
+def count(name: str, n):
+    """Add n (an int or a tensor, as PerformanceMonitor.count) to the
+    current monitor's counter `name` (nothing without one)."""
     m = _current.get()
     if m is not None:
         m.count(name, n)

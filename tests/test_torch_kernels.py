@@ -1,23 +1,27 @@
-"""The two CUDA kernels against their plain PyTorch twins on the card, and
-the slice on the card. Every test here needs a CUDA card and nvcc, so on a
+"""The three CUDA kernels against their plain PyTorch twins on the card,
+and the slice on the card. Every test here needs a CUDA card and nvcc, so on a
 CPU-only machine each one skips.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine without JAX: `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 """
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from plsvo_torch import image as ti
+from plsvo_torch import lie
 from plsvo_torch.camera import PinholeCamera
 from plsvo_torch.config import fast_config
 from plsvo_torch.ops import fast_score as tfs
 from plsvo_torch.ops import feature_align as tfa
 from plsvo_torch.ops import lines as tl
 from plsvo_torch.ops import mixed_align as tma
+from plsvo_torch.ops import sparse_align as tsa
 from plsvo_torch.pipeline import frame_handler as tfh
 from plsvo_torch.utils import synthetic, trajectory
 
@@ -197,6 +201,117 @@ def test_mixed_align_kernel_with_segment_endpoint_rows(cuda, gen, N):
     assert float((out.mean_diff - md_p)[c_p].abs().max()) < 2e-2
 
 
+# EuRoC cam0's rectified intrinsics, the benchmark's camera
+ALIGN_CAM = PinholeCamera.create(752, 480, 458.654, 457.296, 367.215, 248.375)
+
+
+def _align_problem(device, B=1, N=192, M=96, K=8, adaptive=True, seed=0):
+    """B sequences over the bench plane: a reference frame 2 m above it and
+    a current frame moved ~1 cm and ~5 mrad (each sequence its own motion),
+    N points and M segments (20-80 px) at random pixels of the reference
+    at their true depths, ~5% of the points and ~10% of the segments
+    invalid. Segments carry their 3-D endpoints (length-adaptive samples)
+    or, not adaptive, K fixed samples only. Returns sparse_img_align's
+    arguments and keywords."""
+    gen = np.random.default_rng(seed)
+    scene = synthetic.make_scene(np.random.default_rng(3), size=2048,
+                                 texel_size=0.003)
+    cam = ALIGN_CAM
+    lo, hi = np.asarray([15.0, 15.0]), np.asarray([cam.width - 15.0,
+                                                   cam.height - 15.0])
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+
+    def ray(uv):
+        return np.stack([(uv[..., 0] - cam.cx) / cam.fx,
+                         (uv[..., 1] - cam.cy) / cam.fy,
+                         np.ones(uv.shape[:-1], np.float32)], -1)
+
+    pyr_r, pyr_c, cols = [], [], []
+    for b in range(B):
+        t_ref = np.asarray([0.1 * b, -0.05 * b, -2.0], np.float32)
+        R_cur = lie.so3_exp(T(gen.normal(0, 0.005, 3))).cpu().numpy()
+        t_cur = t_ref + gen.normal(0, 0.01, 3).astype(np.float32)
+        for pyr, (R, t) in ((pyr_r, (np.eye(3, dtype=np.float32), t_ref)),
+                            (pyr_c, (R_cur, t_cur))):
+            pyr.append(ti.build_pyramid(synthetic.render_aa(
+                scene, cam, R, t, device=device), 5))
+
+        def depth(uv):
+            return synthetic.depth_at(scene, cam, np.eye(3, dtype=np.float32),
+                                      t_ref, uv.astype(np.float32),
+                                      device=device).cpu().numpy()
+
+        uv = gen.uniform(lo, hi, (N, 2))
+        s_uv = gen.uniform(lo, hi, (M, 2))
+        ang, ln = gen.uniform(0, np.pi, M), gen.uniform(20, 80, M)
+        e_uv = np.clip(s_uv + ln[:, None] * np.stack([np.cos(ang),
+                                                      np.sin(ang)], -1), lo, hi)
+        cols.append((ray(uv) * depth(uv)[:, None], uv, gen.random(N) < 0.95,
+                     s_uv, e_uv, ray(s_uv), ray(e_uv), depth(s_uv),
+                     depth(e_uv), gen.random(M) < 0.9))
+    col = [np.stack([c[i] for c in cols]) for i in range(10)]
+    pts = tsa.AlignPoints(T(col[0]), T(col[1]), torch.as_tensor(
+        col[2], device=device))
+    segs = tsa.make_align_segments(*[T(c) for c in col[3:9]],
+                                   torch.as_tensor(col[9], device=device), K,
+                                   cam.fx, cam.fy, cam.cx, cam.cy)
+    if not adaptive:
+        segs = tsa.AlignSegments(segs.xyz_ref, segs.uv_ref, segs.valid)
+    pyrs = [[torch.stack([p[lv] for p in pyr]) for lv in range(5)]
+            for pyr in (pyr_r, pyr_c)]
+    R0 = torch.eye(3, device=device).expand(B, 3, 3).contiguous()
+    return ((*pyrs, pts, segs, R0, torch.zeros((B, 3), device=device),
+             cam.fx, cam.fy, cam.cx, cam.cy),
+            dict(levels=(4, 3, 2), n_iter=30, patch_size=4))
+
+
+# (batch, points, segments, samples a segment, adaptive): the bench's
+# shapes alone and batched, points only, segments only, fast_config()'s 4
+# fixed samples, and rows that overflow shared memory (the global scratch)
+_ALIGN_CASES = {"batch1": dict(B=1), "batch4": dict(B=4),
+                "points_only": dict(M=0), "segments_only": dict(N=0),
+                "fixed_k4": dict(B=2, K=4, adaptive=False),
+                "scratch_k32": dict(B=2, K=32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_ALIGN_CASES))
+def test_sparse_align_kernel_matches_plain(cuda, case):
+    """K3 against the plain twin on the same card inputs, held as
+    chip_smoke.py's gate holds it: poses within 1e-4 rad and 1e-4,
+    seg_alive and the tracked counts equal, the iterations of each level
+    equal but where the two sides part at a chi2-increase test within
+    float32 rounding (reported as a warning). Two launches give the same
+    bits; an unbatched call dispatches to the kernel."""
+    args, kw = _align_problem(cuda, **_ALIGN_CASES[case])
+    before = tsa.launches
+    out_k, trace = tsa.sparse_img_align_cuda(*args, **kw)
+    assert tsa.launches == before + 1
+    out_p = tsa.sparse_img_align_plain(*args, **kw)
+    problem, rot, terr, partings = chip_smoke.k3_compare(out_k, trace, out_p)
+    assert problem is None, problem
+    for b, lv, nk, np_, step in partings:
+        warnings.warn(f"{case}: sequence {b} level index {lv} ran {nk} "
+                      f"iterations on the card, {np_} in the plain twin "
+                      f"(relative chi2 step {step:.2e})")
+    n_pts, n_segs = out_p.n_tracked_pts, out_p.n_tracked_segs
+    N, M = args[2].valid.shape[1], args[3].valid.shape[1]
+    assert bool((n_pts >= N // 2).all()) and bool((n_segs >= M // 2).all())
+    assert int(out_p.iters.min()) >= 1
+    again, _ = tsa.sparse_img_align_cuda(*args, **kw)
+    for x, y in zip(out_k, again):
+        assert torch.equal(x, y)
+    if case == "batch1":
+        one = tsa.sparse_img_align(
+            [p[0] for p in args[0]], [p[0] for p in args[1]],
+            tsa.AlignPoints(*[a[0] for a in args[2]]),
+            tsa.AlignSegments(*[a[0] for a in args[3]]), args[4][0],
+            args[5][0], *args[6:], **kw)
+        assert tsa.launches == before + 3
+        for x, y in zip(one, out_k):
+            assert torch.equal(x, y[0])
+
+
 @pytest.mark.cuda
 def test_detect_segments_card_matches_cpu(cuda):
     """The keyframe line detector on the card against the same code on the
@@ -245,9 +360,9 @@ def _golden_run(device, lines):
 def test_slice_tracks_on_the_card(cuda):
     """The points-only sync slice on the card: the bound of the CPU run of
     tests/test_torch_pipeline.py."""
-    k1, k2 = tfs.launches, tma.launches
+    k1, k2, k3 = tfs.launches, tma.launches, tsa.launches
     _, _, ate = _golden_run(cuda, lines=False)
-    assert tfs.launches > k1 and tma.launches > k2
+    assert tfs.launches > k1 and tma.launches > k2 and tsa.launches > k3
     assert ate < 0.002, ate
 
 
