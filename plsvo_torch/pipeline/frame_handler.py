@@ -516,6 +516,9 @@ class FrameHandlerMono:
         kwargs = self._step_kwargs()
         atlas = m.kf_atlas_flat(pl.n_pyr_levels)
         cam = (self._fx, self._fy, self._cx, self._cy)
+        # a chain restarts from a full upload of the map: the first dispatch
+        # after a flush, a failure or a change the deltas cannot carry
+        self.permon.count("mt_resync", int(not self._pipe_q))
         with self.permon.timer("device_step"):
             if not self._pipe_q:
                 pyr = build_pyramid(img, self.n_levels)
@@ -530,9 +533,10 @@ class FrameHandlerMono:
                     frame_id=self.frame_id, **kwargs)
             else:
                 del kwargs["specs"]
-                delta = self._dev(m.pack_mt_deltas(
-                    fused.MT_DELTA_DP, fused.MT_DELTA_DL, fused.MT_DELTA_OP,
-                    fused.MT_DELTA_OL, self._mt_ne))
+                with self.permon.timer("mt_delta"):
+                    delta = self._dev(m.pack_mt_deltas(
+                        fused.MT_DELTA_DP, fused.MT_DELTA_DL,
+                        fused.MT_DELTA_OP, fused.MT_DELTA_OL, self._mt_ne))
                 step = fused.track_frame_step_tables(
                     img, atlas, self._pipe_q[-1][1].next,
                     self._mt_carry, self.pt_seeds, self.ln_seeds,
@@ -552,6 +556,10 @@ class FrameHandlerMono:
             self._initiate_drain(keep=1)
         # bookkeep a fetched window only once the next one is submitted
         self._complete_drains(force=len(self._fetch_q) > 1)
+        # dispatched and not yet bookkept: at most 2 x depth (up to depth
+        # frames not yet drained, and the window whose copy is under way)
+        self.permon.count("inflight", len(self._pipe_q) + sum(
+            len(w[0]) for w in self._fetch_q))
         return self._ready.pop(0) if self._ready else None
 
     def sync_carry(self):
@@ -585,7 +593,7 @@ class FrameHandlerMono:
         take, self._pipe_q = self._pipe_q[:n], self._pipe_q[n:]
         pending_init, self._pending_seed_init = self._pending_seed_init, []
         pending_ba, self._pending_ba = self._pending_ba[:2], self._pending_ba[2:]
-        with self.permon.timer("fetch"):
+        with self.permon.timer("fetch"), self.permon.timer("drain_submit"):
             flat, meta = fused.flatpack((
                 [(fused.fetch_view(s.fused), s.pt_conv, s.ln_conv)
                  for _, s in take],
@@ -606,17 +614,21 @@ class FrameHandlerMono:
         while self._fetch_q and force:
             frames, pending_init, pending_ba, handle, meta = self._fetch_q.pop(0)
             newest_frame = self.last_frame
-            with self.permon.timer("fetch"):
+            with self.permon.timer("fetch"), self.permon.timer("drain_wait"):
                 got, init_got, ba_got = fused.flatunpack(handle.result(), meta)
             for (_, bmeta), (kf_R, kf_t, lm_pos) in zip(pending_ba, ba_got):
                 self._write_back_ba(kf_R, kf_t, lm_pos, bmeta)
+            self.permon.count("ba_writebacks", len(ba_got))
             for (kf_slot, dm, dmin, _), fetched in zip(pending_init, init_got):
                 self._complete_seed_init(kf_slot, dm, dmin, *fetched)
+            n_done = 0
             for frame, (res, pt_c, ln_c) in zip(frames, got):
                 if self.stage == STAGE_RELOCALIZING:
                     break  # the successors of a failed frame are dropped
                 self._apply_harvest(pt_c, ln_c, result_frame_id=frame.frame_id)
                 self._ready.append(self._post_fused(frame, res))
+                n_done += 1
+            self.permon.count("drained_frames", n_done)
             if self.stage == STAGE_RELOCALIZING:
                 for _, q_init, q_ba, _, _ in self._fetch_q:
                     self._pending_ba.extend(q_ba)
@@ -887,6 +899,7 @@ class FrameHandlerMono:
         fetched = fused.fetch([h for h, _ in pend])
         for (_, meta), (kf_R, kf_t, lm_pos) in zip(pend, fetched):
             self._write_back_ba(kf_R, kf_t, lm_pos, meta)
+        self.permon.count("ba_writebacks", len(fetched))
 
     def _solve_local_ba(self, blob: np.ndarray, spec):
         """One windowed BA solve on the handler's device; returns device
@@ -948,24 +961,28 @@ class FrameHandlerMono:
         """New point seeds in free cells (corners, then edgelets in the cells
         the corners leave empty, when egrid is given); new line seeds from
         the host-deduplicated segment candidates."""
-        valid = grid.valid & ~occupied
-        uv = grid.uv[valid]
-        lvl = grid.level[valid]
-        typ = np.zeros(len(uv), np.int32)
-        gdir = np.zeros((len(uv), 2), np.float32)
-        if egrid is not None:
-            e_ok = egrid.valid & ~occupied & ~grid.valid
-            uv = np.concatenate([uv, egrid.uv[e_ok]], 0)
-            lvl = np.concatenate([lvl, egrid.level[e_ok]], 0)
-            typ = np.concatenate([typ, np.ones(int(e_ok.sum()), np.int32)])
-            gdir = np.concatenate([gdir, egrid.grad_dir[e_ok]], 0)
-        f = self._np_unproject(uv) if len(uv) else np.zeros((0, 3), np.float32)
-        mu, sigma2, z_range = df.seed_init_params(d_mean, d_min)
-        self._install_point_seeds(kf_slot, uv, f, lvl, typ, gdir, mu, sigma2,
-                                  z_range)
-        if segs is not None:
-            self._install_line_seeds(kf_slot, self._dedup_segments_host(segs),
-                                     mu, sigma2, z_range)
+        with self.permon.timer("seed_install"):
+            valid = grid.valid & ~occupied
+            uv = grid.uv[valid]
+            lvl = grid.level[valid]
+            typ = np.zeros(len(uv), np.int32)
+            gdir = np.zeros((len(uv), 2), np.float32)
+            if egrid is not None:
+                e_ok = egrid.valid & ~occupied & ~grid.valid
+                uv = np.concatenate([uv, egrid.uv[e_ok]], 0)
+                lvl = np.concatenate([lvl, egrid.level[e_ok]], 0)
+                typ = np.concatenate([typ, np.ones(int(e_ok.sum()),
+                                                   np.int32)])
+                gdir = np.concatenate([gdir, egrid.grad_dir[e_ok]], 0)
+            f = (self._np_unproject(uv) if len(uv)
+                 else np.zeros((0, 3), np.float32))
+            mu, sigma2, z_range = df.seed_init_params(d_mean, d_min)
+            self._install_point_seeds(kf_slot, uv, f, lvl, typ, gdir, mu,
+                                      sigma2, z_range)
+            if segs is not None:
+                self._install_line_seeds(
+                    kf_slot, self._dedup_segments_host(segs), mu, sigma2,
+                    z_range)
 
     def _install_frame(self) -> int:
         """The newest frame whose step was dispatched before a seed install

@@ -176,3 +176,20 @@ def test_monitor_sums_spans_and_counters_per_frame():
     assert rec["frame"] == 0 and rec["n_c"] == 7 and rec["t_a"] > 0.0
     assert set(rec) == {"frame", "t_a", "n_c"} and inner.counts == {"c": 5}
     assert profiling._current.get() is None
+
+
+def test_sync_records_seed_install_on_keyframes_only(run):
+    """The sync path installs seeds after each detection (the bootstrap's
+    second frame and every keyframe), a keyframe's inside kf_init_seeds,
+    and records none of the pipelined path's names."""
+    pipe = {"t_mt_delta", "t_drain_submit", "t_drain_wait", "n_mt_resync",
+            "n_drained_frames", "n_inflight", "n_ba_writebacks"}
+    kfs = 0
+    for f in run["frames"]:
+        assert not pipe & set(f), f["frame"]
+        assert ("t_seed_install" in f) == ("t_kf_detect" in f), f["frame"]
+        if "t_keyframe_path" in f:
+            kfs += 1
+            assert 0.0 < f["t_seed_install"]
+            assert f["t_kf_detect"] + f["t_seed_install"] <= f["t_kf_init_seeds"]
+    assert kfs >= 1
