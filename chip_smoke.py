@@ -157,6 +157,18 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
   7b. K1 batched — the largest batched keyframe detection's R x 3 images:
                masks equal, scores within rtol 1e-4 / atol 1e-3 more than
                8 px from the border; per-call, device and plain times
+  7c. K4      — the pose optimisation kernel vs its plain twin on the
+               inputs of the K4 launches captured in 5, 6, 6b and 6e (1 in
+               K4_EVERY each): MAD scales and observation counts equal
+               within rounding, each pass's iterations and the first
+               pass's strip equal but where the two sides part at a
+               decision within rounding (a chi2 tie, a row at the
+               threshold); every pose within K4_POSE_ATOL at the plain
+               twin's robust cost (K4_COST_RTOL) and its inlier masks the
+               strip at its own pose; where the two sides did not part,
+               chi2 and the information matrices within rounding
+               (k4_compare); one K4 launch per tracked frame of the sync
+               runs
   8. BA      — every local BA problem of the lines run solved on the card
                and on the CPU: finite, poses and landmarks within
                BA_POSE_ATOL / BA_LM_RTOL, every guarded write-back
@@ -173,8 +185,8 @@ card and nvcc; it imports nothing of JAX. Phases, each fatal on failure:
                and mesh runs and phase 6f: the launch count, the launch
                with the most valid rows (device, per-call, plain, bound)
                and the median and max device time over the launches; K3
-               at the lines run's and the batched run's last captured call
-               (per-call, device, plain, bound);
+               and K4 each at the lines run's and the batched run's last
+               captured call (per-call, device, plain, bound);
                detect_fast_grid's, detect_segments_tiled's,
                align_mixed_atlas's and align2d_atlas's per-call times
   11. report — one JSON line per the kernel report format, the card line,
@@ -460,18 +472,20 @@ def _patched(patches):
 def capture_pass(cam, imgs, device, n_main, cfg, run):
     """The run's frames through a handler of its own, untimed, capturing
     the inputs of every K2 launch (tagged by call site), of 1 in K3_EVERY
-    K3 launches (tagged by `run`), of the first reprojection call of
+    K3 launches and 1 in K4_EVERY K4 launches (tagged by `run`), of the
+    first reprojection call of
     align_mixed_atlas and of align2d_atlas, of every local BA solve, and
     the counts of every guarded BA write-back."""
     import torch
 
     from plsvo_torch.ops import depth_filter, matcher
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import pose_opt as po
     from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.parallel import ba
     from plsvo_torch.pipeline.frame_handler import FrameHandlerMono
 
-    out = dict(k2=[], atlas={}, ba=[], write_backs=[], k3=[])
+    out = dict(k2=[], atlas={}, ba=[], write_backs=[], k3=[], k4=[])
     site = ["other"]
 
     def clone(x):
@@ -522,7 +536,8 @@ def capture_pass(cam, imgs, device, n_main, cfg, run):
                (ba, "write_back_window",
                 write_back_capture(ba.write_back_window)),
                (ma, "capture", k2_capture),
-               (sa, "capture", k3_capture_hook(out["k3"], run))]
+               (sa, "capture", k3_capture_hook(out["k3"], run)),
+               (po, "capture", k4_capture_hook(out["k4"], run))]
     patches += [(o, a, at_site(getattr(o, a), label))
                 for o, a, label in _call_sites()]
     undo = _patched(patches)
@@ -544,6 +559,7 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import matcher
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import pose_opt as po
     from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
                                                     FrameHandlerMono)
@@ -576,6 +592,7 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
     fs.launches = 0
     ma.launches = 0
     sa.launches = 0
+    po.launches = 0
     k3_frames = 0  # frames that entered the tracked-frame step
     try:
         for i in range(n_main):
@@ -593,7 +610,7 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
             if r.stage == STAGE_DEFAULT and r.is_keyframe:
                 k1_at_kf.append(fs.launches - k1_before)
         launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
-                    "sparse_align": sa.launches}
+                    "sparse_align": sa.launches, "pose_opt": po.launches}
     finally:
         undo()
     gt_centers = gt_centers[:n_main]
@@ -641,6 +658,9 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
         fail(f"{kind}: K2 never launched: {launches}")
     if launches["sparse_align"] != k3_frames or not k3_frames:
         fail(f"{kind}: {launches['sparse_align']} K3 launches over "
+             f"{k3_frames} tracked frames, not one each")
+    if launches["pose_opt"] != k3_frames:
+        fail(f"{kind}: {launches['pose_opt']} K4 launches over "
              f"{k3_frames} tracked frames, not one each")
     if kind == "lineonly":
         # no point detector: K1 never runs; every tracked frame refines its
@@ -712,6 +732,7 @@ def phase_run(kind, cam, imgs, gt_centers, device, n_main):
     return dict(vo=vo, launches=launches, n_frames=len(results), kind=kind,
                 results=results, bench_mean=bench_mean, bench_p90=bench_p90,
                 captured=cap["k2"], captured_k3=cap["k3"],
+                captured_k4=cap["k4"],
                 atlas_calls=cap["atlas"], ba=cap["ba"],
                 write_backs=cap["write_backs"], ate=ate, path=path,
                 ms_median=float(np.median(ms_tail)),
@@ -766,6 +787,7 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
     flush(). Gates and report as in the module docstring."""
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import pose_opt as po
     from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.pipeline import fused
     from plsvo_torch.pipeline.frame_handler import (STAGE_DEFAULT,
@@ -817,10 +839,11 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
     fs.launches = 0
     ma.launches = 0
     sa.launches = 0
+    po.launches = 0
     for i in range(n_main):
         track(i)
     launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
-                "sparse_align": sa.launches}
+                "sparse_align": sa.launches, "pose_opt": po.launches}
     bench_mean, bench_p90 = bench_stat(stages, ms)
     n_all = n_main + PIPE_DEPTH
     wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
@@ -882,6 +905,7 @@ def phase_pipelined(cam, imgs, gt_centers, device, n_main, sync_run):
           + f"; per frame: {n_launch / n:.0f} kernel launches, {n_sync / n:.1f} "
           "host syncs", flush=True)
     return dict(launches=launches, captured=cap["k2"], captured_k3=cap["k3"],
+                captured_k4=cap["k4"],
                 ate=ate, path=path, bench_mean=bench_mean, bench_p90=bench_p90,
                 n_deferred=len(deferred_k1), n_write_backs=len(write_backs),
                 kind=kind)
@@ -1582,6 +1606,376 @@ def phase_k3(captured):
     return out
 
 
+K4_ROT_ATOL = 1e-5  # rad: the card test's poses (synthetic, 0.3 px noise)
+K4_T_ATOL = 1e-5
+# a real frame's residuals are ~1e-4 on the unit plane, the difference of
+# two coordinates of size ~0.5, so each side rounds them by ~3e-4 of their
+# size: the two sides' chi2 part by up to ~1e-4 relative (1.2e-4 and tie
+# steps up to 7.7e-5 seen on the H100) and their systems by more
+K4_CHI2_TIE = 1e-3
+# on real frames the two sides' MAD scales differ by rounding (~2.6e-4
+# relative on the H100), so each solves a slightly other problem: optima
+# ~1e-5 apart (2.2e-5 rad seen at cond(A) ~460), at the same robust cost
+# within 1.3e-4 relative over 54 calls. The gate holds every sequence to
+# the cost, and to a pose bound far above that drift
+K4_POSE_ATOL = 1e-3  # rad and m
+K4_COST_RTOL = 1e-3  # the robust cost over the valid rows, both poses
+K4_MASK_TIE = 1e-6  # residual norm (unit plane) within this of the threshold
+K4_SCALE_RTOL = 1e-5
+# a residual is the difference of two unit-plane coordinates of size ~0.5,
+# so its rounding is ~1e-7 absolute whatever its size: the MAD scales agree
+# to that (a real frame's scale is ~1e-4, its median element's rounding
+# ~4e-8 on the H100)
+K4_SCALE_ATOL = 5e-7
+K4_INFO_RTOL = 1e-2
+K4_INFO_COND = 1e5  # information matrices compared up to this condition
+K4_EVERY = 4  # the gate re-runs 1 in K4_EVERY pose calls
+
+
+def pose_plain_iters(args, kw):
+    """Each sequence's GN iterations per pass (B, 2) in the plain twin: each
+    sequence run alone (what the batch gives it, its carry frozen once it
+    stops), its `pose_iters` counts recorded per pass."""
+    import torch
+
+    from plsvo_torch.ops import pose_opt
+    from plsvo_torch.utils import profiling
+
+    class Passes(profiling.PerformanceMonitor):
+        def count(self, name, n):
+            if name == "pose_iters":
+                self.passes.append(int(n))
+
+    inp, R0, t0, focal = args
+    out = []
+    for b in range(R0.shape[0]):
+        rec = Passes()
+        rec.passes = []
+        with rec.installed():
+            pose_opt.optimize_pose_plain(type(inp)(*[x[b] for x in inp]),
+                                         R0[b], t0[b], focal, **kw)
+        out.append((rec.passes + [0, 0])[:2])
+    return torch.tensor(out, dtype=torch.int32).reshape(-1, 2)
+
+
+def _pose_rows(inp, R, t, scale_pt, scale_sg, thr):
+    """The plain twin's residual norms of every row at the poses (R, t),
+    their thresholds, and the robust cost over the valid rows (B,),
+    float64 on the CPU."""
+    import torch
+
+    from plsvo_torch.ops import pose_opt
+
+    dev = inp.pt_f.device
+    R, t = R.to(dev, torch.float32), t.to(dev, torch.float32)
+    sp = scale_pt.to(dev).reshape(-1, 1)
+    ss = scale_sg.to(dev).reshape(-1, 1)
+    _, e_pt, _ = pose_opt._pt_errors(R, t, inp)
+    _, _, e_sg, _ = pose_opt._seg_errors(R, t, inp)
+    n_pt, n_sg = torch.linalg.norm(e_pt, dim=-1), torch.linalg.norm(e_sg, dim=-1)
+    zero = torch.zeros((), device=dev)
+    cost = (torch.where(inp.pt_valid, pose_opt.tukey_rho(n_pt / sp), zero).sum(-1)
+            + torch.where(inp.seg_valid, pose_opt.tukey_rho(n_sg / ss),
+                          zero).sum(-1))
+    th_sg = thr * ss.double().cpu() / sp.double().cpu()
+    return ((n_pt.double().cpu(), torch.full_like(sp.double().cpu(), thr)),
+            (n_sg.double().cpu(), th_sg), cost.double().cpu())
+
+
+def k4_first_pass(args, kw):
+    """Both sides' results of the first pass alone (n_iter_ref 0), whose
+    inlier masks are the strip the refinement pass starts from; None when
+    the call has no refinement pass."""
+    from plsvo_torch.ops import pose_opt
+
+    if kw["n_iter_ref"] <= 0:
+        return None
+    kw0 = dict(kw, n_iter_ref=0)
+    return (pose_opt.optimize_pose_cuda(*args, **kw0)[0],
+            pose_opt.optimize_pose_plain(*args, **kw0))
+
+
+def _strip_apart(inp, res_k, res_p, R, t, thr):
+    """The kernel's inlier masks against the strip at the pose (R, t) with
+    the plain twin's thresholds: (sequences whose masks differ (B,), rows
+    that differ away from the threshold, rows forgiven at it). A row is
+    forgiven where its residual norm lies within K4_MASK_TIE of the
+    threshold, plus, for a segment, the gap between the two sides'
+    segment thresholds (which carry the scales' rounding)."""
+    import torch
+
+    (n_pt, th_pt), (n_sg, th_sg), _ = _pose_rows(
+        inp, R, t, res_p.scale_pt.reshape(-1), res_p.scale_seg.reshape(-1), thr)
+    th_k = (thr * res_k.scale_seg.double().cpu()
+            / res_k.scale_pt.double().cpu()).reshape(-1, 1)
+    apart = torch.zeros(n_pt.shape[0], dtype=torch.bool)
+    away = forgiven = 0
+    for name, valid, norm, th, band in (
+            ("pt_inlier", inp.pt_valid, n_pt, th_pt, K4_MASK_TIE),
+            ("seg_inlier", inp.seg_valid, n_sg, th_sg,
+             K4_MASK_TIE + (th_k - th_sg).abs())):
+        ref = valid.cpu() & (norm <= th)
+        diff = getattr(res_k, name).cpu().reshape(ref.shape) != ref
+        apart |= diff.any(-1)
+        far = diff & ((norm - th).abs() > band)
+        away += int(far.sum())
+        forgiven += int((diff & ~far).sum())
+    return apart, away, forgiven
+
+
+def k4_compare(args, kw, out_k, iters_k, trace_k, out_p, iters_p,
+               first=None):
+    """The kernel's PoseOptResult (with its iterations per pass and its
+    per-iteration chi2 trace) against the plain twin's on the same inputs;
+    `first` holds both sides' first-pass results (k4_first_pass) when the
+    call has a refinement pass.
+
+    The two sides part where a decision lies within rounding: a pass's
+    iterations may differ where the kernel's chi2 moved by at most
+    K4_CHI2_TIE (relative) from iteration p - 1 to p, p = min(counts) >=
+    2, so that its chi2-increase test is a tie; the first pass's strip may
+    differ in rows at the threshold (as `_strip_apart` forgives them), so
+    that the refinement runs on other rows. Any other difference in the
+    iterations or the first strip is a fault. The MAD scales must lie
+    within K4_SCALE_RTOL or K4_SCALE_ATOL and the observation counts be
+    equal. Every sequence: its pose finite and within K4_POSE_ATOL, the
+    robust cost over its valid rows (the plain twin's scales) at the
+    kernel's pose within K4_COST_RTOL of the cost at the plain twin's
+    pose, and its inlier masks the strip at the kernel's own pose but at
+    the threshold. A sequence that did not part: chi2 within K4_CHI2_TIE
+    and the information matrices (the float64 inverses of the
+    covariances) within K4_INFO_RTOL (relative, each plus four times the
+    scales' relative difference, which the weights carry) where their
+    condition is at most K4_INFO_COND (beyond it the float32 inverse is
+    rounding on both sides). Returns (problem or None, rotation err (rad),
+    translation err, [(sequence, pass, kernel iters, plain iters, relative
+    chi2 step)] of the iteration partings, rows forgiven at a
+    threshold)."""
+    import torch
+
+    from plsvo_torch.ops import pose_opt
+
+    inp, _, _, focal = args
+    batch = [out_k, out_p] + (list(first) if first is not None else [])
+    if out_p.R.dim() == 2:
+        inp = pose_opt.PoseOptInputs(*[x[None] for x in inp])
+        batch = [type(r)(*[x[None] for x in r]) for r in batch]
+    res_k, res_p = batch[:2]
+    Rk, Rp = res_k.R.double().cpu(), res_p.R.double().cpu()
+    tk, tp = res_k.t.double().cpu(), res_p.t.double().cpu()
+    if not (bool(torch.isfinite(Rk).all()) and bool(torch.isfinite(tk).all())):
+        return ("K4 returned a non-finite pose", float("nan"), float("nan"),
+                [], 0)
+    problems = []
+    thr = float(np.float32(kw["reproj_thresh"] / focal))
+    ik_ = iters_k.cpu().reshape(-1, 2).tolist()
+    ip_ = iters_p.cpu().reshape(-1, 2).tolist()
+    chi2 = trace_k.double().cpu().reshape(len(ik_), 2, -1)
+    partings = []
+    for b, (pk, pp) in enumerate(zip(ik_, ip_)):
+        for ps, (nk, np_) in enumerate(zip(pk, pp)):
+            if nk == np_:
+                continue
+            p = min(nk, np_)
+            step = (float(abs(chi2[b, ps, p - 1] - chi2[b, ps, p - 2])
+                          / abs(chi2[b, ps, p - 2]).clamp_min(1e-30))
+                    if p >= 2 else float("inf"))
+            partings.append((b, ps, nk, np_, step))
+            if not step <= K4_CHI2_TIE:
+                problems.append(
+                    f"K4 sequence {b} pass {ps}: {nk} iterations on the card, "
+                    f"{np_} in the plain twin, at a relative chi2 step "
+                    f"{step:.3e} (> {K4_CHI2_TIE}: not a rounding tie)")
+    parted = torch.zeros(len(ik_), dtype=torch.bool)
+    parted[[q[0] for q in partings]] = True
+    forgiven = 0
+    if first is not None:
+        k1, p1 = batch[2:]
+        apart, away, n = _strip_apart(inp, k1, p1, p1.R, p1.t, thr)
+        if away:
+            problems.append(f"K4's first-pass strip differs from the plain "
+                            f"twin's in {away} rows away from the threshold")
+        parted |= apart
+        forgiven += n
+    chord = torch.linalg.norm((Rk - Rp).reshape(-1, 9), dim=-1) / (2 * 2 ** 0.5)
+    rot = 2 * torch.asin(chord.clamp(max=1.0))
+    terr = (tk - tp).abs().amax(-1)
+    rot_err = float(rot.max()) if rot.numel() else 0.0
+    t_err = float(terr.max()) if terr.numel() else 0.0
+    if rot_err > K4_POSE_ATOL or t_err > K4_POSE_ATOL:
+        problems.append(f"K4 pose differs from the plain twin's by "
+                        f"{rot_err:.3e} rad / {t_err:.3e} (limit "
+                        f"{K4_POSE_ATOL})")
+    cost_p = _pose_rows(inp, res_p.R, res_p.t, res_p.scale_pt,
+                        res_p.scale_seg, thr)[2]
+    cost_k = _pose_rows(inp, res_k.R, res_k.t, res_p.scale_pt,
+                        res_p.scale_seg, thr)[2]
+    off = ~((cost_k - cost_p).abs() <= K4_COST_RTOL * cost_p.abs())
+    off &= ~(cost_k.isnan() & cost_p.isnan())
+    if bool(off.any()):
+        problems.append(f"K4 sequences {off.nonzero().flatten().tolist()} "
+                        f"stop at a robust cost {cost_k[off].tolist()} against "
+                        f"the plain twin's {cost_p[off].tolist()} (rtol "
+                        f"{K4_COST_RTOL})")
+    for name in ("n_obs_pt", "n_obs_seg"):
+        a = getattr(res_k, name).cpu()
+        b = getattr(res_p, name).cpu().to(a.dtype)
+        if not torch.equal(a, b):
+            problems.append(f"K4 {name} {a.tolist()} against {b.tolist()}")
+
+    def close(name, rtol, rows, atol=0.0):
+        a = getattr(res_k, name).double().cpu()[rows]
+        b = getattr(res_p, name).double().cpu()[rows]
+        lim = torch.maximum(rtol * b.abs(), torch.as_tensor(atol))
+        same = (a == b) | (a.isnan() & b.isnan()) | ((a - b).abs() <= lim)
+        if not bool(same.all()):
+            problems.append(f"K4 {name} {a.tolist()} against {b.tolist()} "
+                            f"(rtol {rtol}, atol {atol})")
+
+    every = torch.ones(len(ik_), dtype=torch.bool)
+    close("scale_pt", K4_SCALE_RTOL, every, K4_SCALE_ATOL)
+    close("scale_seg", K4_SCALE_RTOL, every, K4_SCALE_ATOL)
+    # chi2 and the system scale as the weights do: allow four times the
+    # scales' relative difference on top of rounding
+    ds = torch.stack([((getattr(res_k, n).double().cpu()
+                        - getattr(res_p, n).double().cpu())
+                       / getattr(res_p, n).double().cpu()).abs()
+                      for n in ("scale_pt", "scale_seg")]).amax(0)
+    ds = ds.nan_to_num(0.0)
+    for b in (~parted).nonzero().flatten().tolist():
+        close("chi2", K4_CHI2_TIE + 4 * float(ds[b]), torch.tensor([b]))
+    ck, cp = res_k.cov.double().cpu(), res_p.cov.double().cpu()
+    fin_k = torch.isfinite(ck).flatten(1).all(-1)
+    fin_p = torch.isfinite(cp).flatten(1).all(-1)
+    if not torch.equal(fin_k, fin_p):
+        problems.append(f"K4 covariance finite {fin_k.tolist()} against "
+                        f"{fin_p.tolist()}")
+    else:
+        sel = fin_p & ~parted
+        if bool(sel.any()):
+            ik, ip = (torch.linalg.inv(c[sel]) for c in (ck, cp))
+            sel_c = torch.linalg.cond(ip) <= K4_INFO_COND
+            info = (torch.linalg.norm((ik - ip).flatten(1), dim=-1)
+                    / torch.linalg.norm(ip.flatten(1), dim=-1))[sel_c]
+            lim = (K4_INFO_RTOL + 4 * ds[sel])[sel_c]
+            if info.numel() and not bool((info <= lim).all()):
+                problems.append(f"K4 information matrix (inverse covariance) "
+                                f"differs by {float(info.max()):.3e} relative "
+                                f"(limit {K4_INFO_RTOL} + 4 x the scales' "
+                                "relative difference)")
+    # the final strip, at the kernel's own pose
+    _, away, n = _strip_apart(inp, res_k, res_p, Rk, tk, thr)
+    if away:
+        problems.append(f"K4's inlier masks differ from the strip at its pose "
+                        f"in {away} rows away from the threshold")
+    forgiven += n
+    return (problems[0] if problems else None, rot_err, t_err, partings,
+            forgiven)
+
+
+def k4_capture_hook(captured, run, every=K4_EVERY):
+    """A pose_opt.capture hook that keeps 1 in `every` launches' inputs
+    (cloned) as (args, kwargs, run)."""
+    seen = [0]
+
+    def hook(args, kwargs):
+        seen[0] += 1
+        if (seen[0] - 1) % every:
+            return
+        inp, R0, t0, focal = args
+        captured.append(((type(inp)(*[x.clone() for x in inp]), R0.clone(),
+                          t0.clone(), focal), dict(kwargs), run))
+    return hook
+
+
+def k4_bound_ms(args, iters):
+    """The least time of a K4 call on the card, (ms, "bytes" or
+    "operations"): the row tables read once and the outputs written once
+    (f32; int32 levels, byte masks), against the rows' work in every
+    iteration run (~160 operations a point row and ~300 a segment row:
+    transform, projection, Jacobian, weight, the 28 sums) and ~800 for
+    each iteration's 6x6 Cholesky, exponential and decision, plus the
+    median's sorts and the strips."""
+    inp, R0 = args[0], args[1]
+    B, N = inp.pt_f.shape[:2]
+    M = inp.seg_line.shape[1]
+    nbytes = sum(x.numel() * x.element_size() for x in inp)
+    nbytes += 4 * (R0.numel() + 3 * B)
+    nbytes += B * (4 * (9 + 3 + 36 + 3) + 8 + 8 + N + M)
+    it = int(iters.sum())
+    row_ops = 160 * N + 300 * M
+    ops = it * (row_ops + 800) + 3 * B * row_ops
+    n2 = max(N, M, 1)
+    ops += 2 * B * n2 * max(1, int(np.log2(n2))) ** 2
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def _to_cpu(x):
+    import torch
+
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    if isinstance(x, (tuple, list)):
+        out = [_to_cpu(v) for v in x]
+        return type(x)(*out) if hasattr(x, "_fields") else type(x)(out)
+    return x
+
+
+def phase_k4(captured, out_dir=OUT_DIR):
+    """Every captured pose call, re-run by K4 and by the plain twin on the
+    card and held to each other by k4_compare. Prints, per run, the calls
+    checked, the largest rotation and translation differences, the calls
+    whose iterations differ, the inlier rows apart at a threshold and the
+    largest relative difference of the robust cost at the two poses; every
+    problem, then fails if there was one. The calls and both sides' results
+    go to `out_dir`/k4_calls.pt for a replay on the CPU."""
+    import torch
+
+    from plsvo_torch.ops import pose_opt
+
+    if not captured:
+        fail("K4: no pose call was captured")
+    out, problems, kept = {}, [], []
+    for i, (args, kw, run) in enumerate(captured):
+        out_k, iters_k, trace = pose_opt.optimize_pose_cuda(*args, **kw)
+        out_p = pose_opt.optimize_pose_plain(*args, **kw)
+        iters_p = pose_plain_iters(args, kw)
+        first = k4_first_pass(args, kw)
+        torch.cuda.synchronize()
+        problem, rot, terr, partings, forgiven = k4_compare(
+            args, kw, out_k, iters_k, trace, out_p, iters_p, first)
+        kept.append(_to_cpu((args, kw, run, out_k, iters_k, trace, out_p,
+                             iters_p, first)))
+        thr = float(np.float32(kw["reproj_thresh"] / args[3]))
+        c_p, c_k = (_pose_rows(args[0], r.R, r.t, out_p.scale_pt,
+                               out_p.scale_seg, thr)[2] for r in (out_p, out_k))
+        cost = float(((c_k - c_p).abs() / c_p.abs().clamp_min(1e-30)).max())
+        if problem:
+            problems.append(f"{problem} ({run} run, captured call {i}, B="
+                            f"{args[1].shape[0]})")
+            print(f"K4 problem: {problems[-1]}", flush=True)
+        for b, ps, nk, np_, step in partings:
+            print(f"K4 {run} call {i}: sequence {b} pass {ps} ran {nk} "
+                  f"iterations on the card and {np_} in the plain twin (chi2 "
+                  f"step {step:.2e} relative: a rounding tie)", flush=True)
+        n, r, t, n_part, n_rows, c = out.get(run, (0, 0.0, 0.0, 0, 0, 0.0))
+        out[run] = (n + 1, max(r, rot), max(t, terr), n_part + bool(partings),
+                    n_rows + forgiven, max(c, cost))
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(kept, os.path.join(out_dir, "k4_calls.pt"))
+    for run, (n, r, t, n_part, n_rows, c) in out.items():
+        print(f"K4 {run}: {n} calls checked against the plain twin, rotation "
+              f"max diff {r:.3e} rad, translation {t:.3e}; {n_part} calls "
+              f"whose iterations differ; {n_rows} inlier rows apart at their "
+              f"threshold; robust cost at the two poses apart by {c:.3e} "
+              "relative at most", flush=True)
+    if problems:
+        fail(f"K4: {len(problems)} of {len(captured)} calls failed the gate; "
+             f"the first: {problems[0]}")
+    return {run: v[:5] for run, v in out.items()}
+
+
 def _stage_hooks():
     """(owner, attribute, label) of the stages of a tracked frame and of a
     keyframe, as the frame handler reaches them (outermost calls only)."""
@@ -1708,6 +2102,7 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
     n_pyr = cfg.pipeline.n_pyr_levels
     bvo = BatchedVO(cam, cfg, B, mode="vmap", device=device)
     captured, k1_inputs, drains, captured_k3 = [], [], [], []
+    captured_k4 = []
     site = ["other"]
 
     def k2_capture(args, kwargs):
@@ -1754,6 +2149,7 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
     undo = _patched([(ma, "capture", k2_capture),
                      (sparse_align, "capture",
                       k3_capture_hook(captured_k3, kind)),
+                     (pose_opt, "capture", k4_capture_hook(captured_k4, kind)),
                      (fs, "fast_score_levels", levels_capture),
                      (sparse_align, "sparse_img_align",
                       keep_call("sparse_img_align",
@@ -1765,10 +2161,12 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
         fs.launches = 0
         ma.launches = 0
         sparse_align.launches = 0
+        pose_opt.launches = 0
         for i in range(n_main):
             track(i)
         launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
-                    "sparse_align": sparse_align.launches}
+                    "sparse_align": sparse_align.launches,
+                    "pose_opt": pose_opt.launches}
         timed = list(calls)
         wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
             lambda: [track(i) for i in range(n_main, n_all)])
@@ -1861,9 +2259,9 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
                  f"handler's (limit {SOLO_TOL_M})")
     gn = gn_iterations(gn_calls)
     for name, (it_b, it_s) in gn.items():
-        how = ("K3 runs each sequence's own; a loop to the slowest member "
-               "would run" if name == "sparse_img_align"
-               else "the frozen carries cost")
+        how = ("K3" if name == "sparse_img_align" else "K4") + (
+            " runs each sequence's own; a loop to the slowest member would "
+            "run")
         print(f"{kind}: {name} of the last batched step: {it_b} GN "
               f"iterations for the batch (every level, the slowest member's "
               f"stop) against {it_s} for its sequences alone (mean "
@@ -1888,6 +2286,7 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
           + f"; per batched step: {n_launch / n:.0f} kernel launches, "
           f"{n_sync / n:.1f} host syncs", flush=True)
     return dict(kind=kind, captured=captured, captured_k3=captured_k3,
+                captured_k4=captured_k4,
                 launches=launches, fps=fps,
                 gn=gn, delivered=delivered,
                 k1_inputs=k1_inputs, drains=drains, ates=ates, paths=paths,
@@ -1900,38 +2299,18 @@ def phase_batched(cam, imgs, gt_centers, device, n_main):
 def gn_iterations(calls):
     """GN iterations (one 6x6 solve each) of each captured batched call of
     sparse_img_align / optimize_pose: {name: (batch iterations, [per
-    sequence])}. The alignment's come from one K3 run of the call (each
-    sequence leaves its loop on its own; the batch's are what a loop to the
-    slowest member would run, the levels' maxima summed); optimize_pose
-    runs again for the batch and for each of its sequences alone."""
+    sequence])}, from one K3 / K4 run of the call (each sequence leaves its
+    loop on its own; the batch's are what a loop to the slowest member
+    would run: per level or pass the maxima, summed)."""
     from plsvo_torch.ops import pose_opt, sparse_align
 
     out = {}
     for name, (a, k) in sorted(calls.items()):
         if name == "sparse_img_align":
             it = sparse_align.sparse_img_align(*a, **k).iters
-            out[name] = (int(it.amax(0).sum()), it.sum(-1).tolist())
-            continue
-        mod = pose_opt
-        n = [0]
-        orig = mod.solve_psd
-
-        def counting(*x, **y):
-            n[0] += 1
-            return orig(*x, **y)
-
-        mod.solve_psd = counting
-        try:
-            getattr(mod, name)(*a, **k)
-            it_b, it_s = n[0], []
-            for b in range(a[1].shape[0]):
-                n[0] = 0
-                mod.optimize_pose(type(a[0])(*[x[b] for x in a[0]]),
-                                  a[1][b], a[2][b], *a[3:], **k)
-                it_s.append(n[0])
-        finally:
-            mod.solve_psd = orig
-        out[name] = (it_b, it_s)
+        else:
+            it = pose_opt.optimize_pose_cuda(*a, **k)[1]
+        out[name] = (int(it.amax(0).sum()), it.sum(-1).tolist())
     return out
 
 
@@ -2309,6 +2688,7 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
     from plsvo_torch.config import fast_config
     from plsvo_torch.ops import fast_score as fs
     from plsvo_torch.ops import mixed_align as ma
+    from plsvo_torch.ops import pose_opt as po
     from plsvo_torch.ops import sparse_align as sa
     from plsvo_torch.parallel import ba, distributed
     from plsvo_torch.parallel.dryrun import dryrun_multichip
@@ -2336,7 +2716,7 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
     n_all = MESH_FRAMES + MESH_PROFILED
     mesh = Mesh([device, device], ("seq",))
     bvo = BatchedVO(cam, cfg, B, mesh=mesh, axis="seq")
-    captured, site, captured_k3 = [], ["other"], []
+    captured, site, captured_k3, captured_k4 = [], ["other"], [], []
     calls = []
 
     def k2_capture(args, kwargs):
@@ -2354,16 +2734,18 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
                 delivered[b].append(r)
 
     undo = _patched([(ma, "capture", k2_capture),
-                     (sa, "capture", k3_capture_hook(captured_k3, kind))]
+                     (sa, "capture", k3_capture_hook(captured_k3, kind)),
+                     (po, "capture", k4_capture_hook(captured_k4, kind))]
                     + _site_patches(site))
     try:
         fs.launches = 0
         ma.launches = 0
         sa.launches = 0
+        po.launches = 0
         for i in range(MESH_FRAMES):
             track(i)
         launches = {"fast_score": fs.launches, "mixed_align": ma.launches,
-                    "sparse_align": sa.launches}
+                    "sparse_align": sa.launches, "pose_opt": po.launches}
         timed = list(calls)
         wall_ms, busy_ms, n_launch, n_sync, _ = profile_window(
             lambda: [track(i) for i in range(MESH_FRAMES, n_all)])
@@ -2373,7 +2755,8 @@ def phase_mesh(cam, imgs, gt_centers, device, batched_run):
                     delivered[b].append(r)
     finally:
         undo()
-    out.update(captured=captured, captured_k3=captured_k3, launches=launches)
+    out.update(captured=captured, captured_k3=captured_k3,
+               captured_k4=captured_k4, launches=launches)
     if not launches["fast_score"] or not launches["mixed_align"]:
         fail(f"{kind}: kernel launches of the mesh run {launches}: each "
              "kernel must launch")
@@ -3125,6 +3508,8 @@ def main():
                    for c in r["captured"]])
     k3 = phase_k3([c for r in (sl, sp, so, spp, sb8, smesh)
                    for c in r["captured_k3"]])
+    k4 = phase_k4([c for r in (sl, sp, so, spp, sb8, smesh)
+                   for c in r["captured_k4"]])
     k1b = phase_k1_batched(sb8["k1_inputs"])
     sb = phase_ba(sl, device)
     phase_profile(sl["vo"], imgs, n_main, n_win, sl["ms_median"])
@@ -3214,6 +3599,7 @@ def main():
 
     # K3 at the lines run's last captured call (B = 1) and at the batched
     # run's (B = BATCH): per call, device, plain, bound
+    from plsvo_torch.ops import pose_opt as po
     from plsvo_torch.ops import sparse_align as sa
 
     k3_t = {}
@@ -3237,6 +3623,29 @@ def main():
               f"{e['kernel_ms']:.4f} ms), plain {e['plain_ms']:.4f} ms, bound "
               f"{bound3:.6f} ms ({by3}; {100 * bound3 / e['kernel_ms']:.2f}% of "
               f"its device time)", flush=True)
+
+    # K4 at the lines run's last captured call (B = 1) and at the batched
+    # run's (B = BATCH): per call, device, plain, bound
+    k4_t = {}
+    for run, res in (("lines", sl), ("batched", sb8)):
+        a4, kw4, _ = max(reversed(res["captured_k4"]),
+                         key=lambda c: c[0][1].shape[0])
+        f4 = lambda a4=a4, kw4=kw4: po.optimize_pose_cuda(*a4, **kw4)  # noqa: E731
+        it4 = f4()[1]
+        bound4, by4 = k4_bound_ms(a4, it4)
+        k4_t[run] = dict(
+            B=int(a4[1].shape[0]), iters=it4.tolist(),
+            ms=cuda_time_ms(f4), kernel_ms=kernel_device_ms(
+                f4, "pose_opt_kernel"),
+            plain_ms=cuda_time_ms(
+                lambda a4=a4, kw4=kw4: po.optimize_pose_plain(*a4, **kw4),
+                reps=5, inner=2), bound_ms=bound4, bound_by=by4)
+        e = k4_t[run]
+        print(f"timing: K4 {run} call (B={e['B']}, iterations per sequence "
+              f"and pass {e['iters']}): kernel {e['ms']:.4f} ms per call "
+              f"(device {e['kernel_ms']:.4f} ms), plain {e['plain_ms']:.4f} "
+              f"ms, bound {bound4:.6f} ms ({by4}; {100 * bound4 / e['kernel_ms']:.2f}% "
+              f"of its device time)", flush=True)
 
     nf = sl["n_frames"]
     k2_uv = max(e[2] for e in k2.values())
@@ -3333,6 +3742,33 @@ def main():
          "kernel_ms_batched": k3_t["batched"]["kernel_ms"],
          "plain_ms_batched": k3_t["batched"]["plain_ms"],
          "bound_ms_batched": k3_t["batched"]["bound_ms"]},
+        {"name": "pose_opt", "route": "cuda",
+         "source": "plsvo_torch/csrc/pose_opt.cu",
+         "replaces": "the XLA while_loop of plsvo_tpu/ops/pose_opt.py:217 "
+                     "(no Pallas kernel)",
+         "launches": sl["launches"]["pose_opt"],
+         "launches_per_frame": sl["launches"]["pose_opt"] / nf,
+         "launches_points_only": sp["launches"]["pose_opt"],
+         "launches_line_only": so["launches"]["pose_opt"],
+         "launches_pipelined": spp["launches"]["pose_opt"],
+         "launches_batched": sb8["launches"]["pose_opt"],
+         "launches_mesh": smesh["launches"]["pose_opt"],
+         "max_abs_err": max(e[1] for e in k4.values()),
+         "max_abs_err_kind": "rot_rad",
+         "max_err": max(e[2] for e in k4.values()), "max_err_kind": "abs_t",
+         "calls_iters_differ": sum(e[3] for e in k4.values()),
+         "rows_apart_at_threshold": sum(e[4] for e in k4.values()),
+         "calls_checked": sum(e[0] for e in k4.values()),
+         "ms": k4_t["lines"]["ms"], "kernel_ms": k4_t["lines"]["kernel_ms"],
+         "plain_ms": k4_t["lines"]["plain_ms"],
+         "bound_ms": k4_t["lines"]["bound_ms"],
+         "bound_by": k4_t["lines"]["bound_by"], "library_ms": None,
+         "shape": [k4_t["lines"]["B"]],
+         "shape_batched": [k4_t["batched"]["B"]],
+         "ms_batched": k4_t["batched"]["ms"],
+         "kernel_ms_batched": k4_t["batched"]["kernel_ms"],
+         "plain_ms_batched": k4_t["batched"]["plain_ms"],
+         "bound_ms_batched": k4_t["batched"]["bound_ms"]},
     ]}
     print(f"summary: lines run ATE {sl['ate']:.6f} m, per-frame ms median "
           f"{sl['ms_median']:.2f} p90 {sl['ms_p90']:.2f} (keyframe frames p90 "

@@ -41,6 +41,9 @@ SIGNATURES = {
     # inputs, 8 outputs, scratch, B, N, M, K, n_iter, fx, fy, cx, cy, stream)
     "plsvo_sparse_align": [_P, _P, _P, _P, _I] + [_P] * 19 + [_I] * 5
                           + [_F] * 4 + [_P],
+    # (11 inputs, 12 outputs, B, N, M, n_iter, n_iter_ref, focal,
+    # reproj_thresh / focal, stream)
+    "plsvo_pose_opt": [_P] * 23 + [_I] * 5 + [_F] * 2 + [_P],
 }
 
 _lib = None
@@ -126,6 +129,14 @@ def load_library(verbose: bool = False):
 def table(ctype, values):
     """A C array of `values`, for a kernel's argument tables."""
     return (ctype * len(values))(*values)
+
+
+def as_input(x, dt, dev, name: str):
+    """x as a contiguous `dt` tensor on card `dev`, for a C entry (no copy
+    when it is one); raises for a tensor on another device."""
+    if x.device != dev:
+        raise ValueError(f"{name}: a tensor on {x.device}, not on {dev}")
+    return x.to(dt).contiguous()
 
 
 def check(err: int, name: str):

@@ -4,23 +4,30 @@ Port of `plsvo_tpu/ops/pose_opt.py`, with its two deliberate fixes of the
 reference kept: the exact line Jacobian rows [l^T J_s; l^T J_e] (the
 reference scales both by ds/||e||), and the sign of the line term (the
 reference omits the flip). A leading batch axis optimizes the poses of B
-sequences at once. The GN loop keeps the JAX package's early exit: a
-stopped sequence's carry is frozen, and the loop reads on the host whether
-any sequence still runs, one sync per iteration on a GPU.
+sequences at once. The GN loop keeps the JAX package's early exit.
+`optimize_pose` dispatches on the device: a CPU tensor takes the plain
+twin `optimize_pose_plain` (a stopped sequence's carry is frozen, and the
+loop reads on the host whether any sequence still runs), any other tensor
+launches the CUDA kernel `csrc/pose_opt.cu` (both GN passes, the MAD
+scales, both strips and the covariance in one launch, each sequence
+leaving its loop on its own, no host sync) or raises.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from plsvo_torch import lie
+from plsvo_torch import _build, lie
 from plsvo_torch.batlin import solve_psd
 from plsvo_torch.indexing import gather_clamped
 from plsvo_torch.ops.sparse_align import jacobian_xyz2uv
 from plsvo_torch.utils.profiling import count
 
 _TUKEY_B = 4.6851
+launches = 0  # kernel launches (incremented only where the kernel launches)
+capture = None  # optional callable(args, kwargs) run before each launch
 
 
 def tukey_weight(x_norm: torch.Tensor) -> torch.Tensor:
@@ -124,12 +131,26 @@ def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
 
     A leading batch axis on every input (tables (B, N, ...), R_init
     (B, 3, 3)) optimizes B poses at once, each from its own rows, with its
-    own MAD scales; a sequence whose loop has stopped keeps its carry
-    frozen, as under vmap. Unbatched inputs run as a batch of one."""
+    own MAD scales, and gets exactly the result it gets alone. Unbatched
+    inputs run as a batch of one. CPU tensors take the plain twin, any
+    other tensor the CUDA kernel."""
+    kw = dict(n_iter=n_iter, n_iter_ref=n_iter_ref, reproj_thresh=reproj_thresh)
+    if inp.pt_f.device.type == "cpu":
+        return optimize_pose_plain(inp, R_init, t_init, focal, **kw)
+    return optimize_pose_cuda(inp, R_init, t_init, focal, **kw)[0]
+
+
+def optimize_pose_plain(inp: PoseOptInputs, R_init, t_init, focal: float, *,
+                        n_iter: int = 10, n_iter_ref: int = 0,
+                        reproj_thresh: float = 2.0) -> PoseOptResult:
+    """The plain twin: a sequence whose loop has stopped keeps its carry
+    frozen while the others iterate, as under vmap; one host read per
+    iteration on a card."""
     if R_init.dim() == 2:
-        res = optimize_pose(PoseOptInputs(*[a[None] for a in inp]),
-                            R_init[None], t_init[None], focal, n_iter=n_iter,
-                            n_iter_ref=n_iter_ref, reproj_thresh=reproj_thresh)
+        res = optimize_pose_plain(
+            PoseOptInputs(*[a[None] for a in inp]), R_init[None],
+            t_init[None], focal, n_iter=n_iter, n_iter_ref=n_iter_ref,
+            reproj_thresh=reproj_thresh)
         return PoseOptResult(*[a[0] for a in res])
     f32 = torch.float32
     dev = inp.pt_f.device
@@ -222,6 +243,80 @@ def optimize_pose(inp: PoseOptInputs, R_init, t_init, focal: float, *,
         n_obs_pt=inp.pt_valid.sum(-1).to(torch.int32),
         n_obs_seg=inp.seg_valid.sum(-1).to(torch.int32),
         scale_pt=scale_pt0, scale_seg=scale_sg0, chi2=chi2)
+
+
+def count_iterations(iters: torch.Tensor):
+    """The `pose_iters` counter of a launch's (B, 2) iterations per pass:
+    per pass the longest-running sequence's, summed over the passes, as the
+    plain loop counts them. A card tensor reaches the monitor without a
+    host sync."""
+    if iters.shape[0]:
+        count("pose_iters", iters[0] if iters.shape[0] == 1 else iters.amax(0))
+
+
+def optimize_pose_cuda(inp: PoseOptInputs, R_init, t_init, focal: float, *,
+                       n_iter: int = 10, n_iter_ref: int = 0,
+                       reproj_thresh: float = 2.0):
+    """Launch the CUDA kernel once on CUDA inputs: both GN passes of every
+    sequence, the MAD scales, both strips and the covariance. Returns
+    (PoseOptResult, iters, trace): iters (B, 2) int32 each sequence's
+    iterations per pass, trace (B, 2, max(n_iter, n_iter_ref, 1)) each
+    iteration's chi2 (the entries past a pass's `iters` unwritten), for the
+    card's parity checks. Unbatched inputs run as a batch of one."""
+    global launches
+    dev = inp.pt_f.device
+    if dev.type != "cuda":
+        raise ValueError(f"optimize_pose_cuda needs CUDA tensors, got {dev}")
+    kw = dict(n_iter=int(n_iter), n_iter_ref=int(n_iter_ref),
+              reproj_thresh=reproj_thresh)
+    if R_init.dim() == 2:
+        res, iters, trace = optimize_pose_cuda(
+            PoseOptInputs(*[a[None] for a in inp]), R_init[None],
+            t_init[None], focal, **kw)
+        return PoseOptResult(*[a[0] for a in res]), iters[0], trace[0]
+    lib = _build.load_library()
+    B, N = inp.pt_f.shape[:2]
+    M = inp.seg_line.shape[1]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    ins = [_build.as_input(x, dt, dev, "optimize_pose_cuda") for x, dt in zip(
+        (*inp, R_init, t_init), (f32, i32, f32, b8, f32, i32, f32, f32, b8,
+                                 f32, f32))]
+    n_iter, n_iter_ref = kw["n_iter"], kw["n_iter_ref"]
+    T = max(n_iter, n_iter_ref, 1)
+    # one allocation: R (B, 9) | t (B, 3) | cov (B, 36) | scale_pt | scale_seg
+    # | chi2 | trace (B, 2, T) f32, then n_obs_pt | n_obs_seg | iters (B, 2)
+    # int32, then pt_inlier (B, N) | seg_inlier (B, M) bool
+    nf = B * (51 + 2 * T)
+    out = torch.empty(4 * (nf + 4 * B) + B * (N + M), dtype=torch.uint8,
+                      device=dev)
+    fl = out[:4 * nf].view(f32)
+    it32 = out[4 * nf:4 * (nf + 4 * B)].view(i32)
+    bl = out[4 * (nf + 4 * B):].view(b8)
+    R, t = fl[:9 * B].view(B, 3, 3), fl[9 * B:12 * B].view(B, 3)
+    cov = fl[12 * B:48 * B].view(B, 6, 6)
+    scale_pt, scale_sg = fl[48 * B:49 * B], fl[49 * B:50 * B]
+    chi2, trace = fl[50 * B:51 * B], fl[51 * B:].view(B, 2, T)
+    n_pt, n_sg, iters = it32[:B], it32[B:2 * B], it32[2 * B:].view(B, 2)
+    pt_in, seg_in = bl[:B * N].view(B, N), bl[B * N:].view(B, M)
+    if capture is not None:
+        capture((inp, R_init, t_init, focal), dict(kw))
+    outs = (R, t, cov, pt_in, seg_in, n_pt, n_sg, scale_pt, scale_sg, chi2,
+            iters, trace)
+    # the C entry launches on the thread's current device: make it the
+    # inputs' (a mesh may hold shards on several cards)
+    with torch.cuda.device(dev):
+        _build.check(lib.plsvo_pose_opt(
+            *[x.data_ptr() for x in ins + list(outs)], B, N, M, n_iter,
+            n_iter_ref, float(np.float32(focal)),
+            float(np.float32(reproj_thresh / focal)),
+            torch.cuda.current_stream(dev).cuda_stream), "plsvo_pose_opt")
+        launches += 1
+        count("pose_opt.launches", 1)
+        count_iterations(iters)
+    return PoseOptResult(
+        R=R, t=t, cov=cov, pt_inlier=pt_in, seg_inlier=seg_in, n_obs_pt=n_pt,
+        n_obs_seg=n_sg, scale_pt=scale_pt, scale_seg=scale_sg,
+        chi2=chi2), iters, trace
 
 
 def line_coeffs_from_bearings(sf: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:

@@ -297,14 +297,6 @@ def sparse_img_align_plain(pyr_ref: Sequence[torch.Tensor],
                        chi2=chi2_out, iters=iters)
 
 
-def _on(x, dt, dev):
-    """x as a contiguous `dt` tensor on card `dev` (no copy when it is)."""
-    if x.device != dev:
-        raise ValueError(f"sparse_img_align_cuda: a tensor on {x.device}, "
-                         f"not on {dev}")
-    return x.to(dt).contiguous()
-
-
 def sparse_img_align_cuda(pyr_ref: Sequence[torch.Tensor],
                           pyr_cur: Sequence[torch.Tensor], pts: AlignPoints,
                           segs: AlignSegments, R_init, t_init, fx, fy, cx,
@@ -323,6 +315,10 @@ def sparse_img_align_cuda(pyr_ref: Sequence[torch.Tensor],
     if patch_size != 4:
         raise ValueError("the kernel is built for 4x4 patches")
     lib = _build.load_library()
+
+    def _on(x, dt, dev):
+        return _build.as_input(x, dt, dev, "sparse_img_align_cuda")
+
     levels = tuple(int(lv) for lv in levels)
     B, N = pts.xyz_ref.shape[:2]
     M, K = segs.xyz_ref.shape[1], segs.xyz_ref.shape[2]

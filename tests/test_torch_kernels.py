@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch twins on the card,
+"""The four CUDA kernels against their plain PyTorch twins on the card,
 and the slice on the card. Every test here needs a CUDA card and nvcc, so on a
 CPU-only machine each one skips.
 
@@ -21,6 +21,7 @@ from plsvo_torch.ops import fast_score as tfs
 from plsvo_torch.ops import feature_align as tfa
 from plsvo_torch.ops import lines as tl
 from plsvo_torch.ops import mixed_align as tma
+from plsvo_torch.ops import pose_opt as tpo
 from plsvo_torch.ops import sparse_align as tsa
 from plsvo_torch.pipeline import frame_handler as tfh
 from plsvo_torch.utils import synthetic, trajectory
@@ -308,6 +309,141 @@ def test_sparse_align_kernel_matches_plain(cuda, case):
             tsa.AlignSegments(*[a[0] for a in args[3]]), args[4][0],
             args[5][0], *args[6:], **kw)
         assert tsa.launches == before + 3
+        for x, y in zip(one, out_k):
+            assert torch.equal(x, y[0])
+
+
+def _pose_problem(device, B=1, N=192, M=96, kinds=(), seed=0):
+    """B sequences of the pose stage's problem at the tracked-frame step's
+    capacities, EuRoC cam0's focal: a camera ~2 m from N points and M
+    segments (endpoints 2-2.3 m deep) seen from its true pose with 0.3 px of
+    noise, ~10% of the points and segments 5-30 px off (outliers), ~15% of
+    the rows invalid, levels 0-2, and an initial pose ~1 cm and ~5 mrad
+    off. kinds[b] makes sequence b "points" (no valid segment), "lines" (no
+    valid point), "empty" (no valid row) or "nan" (a valid point with a NaN
+    bearing: the first step is NaN). Returns optimize_pose's arguments and
+    keywords."""
+    gen = np.random.default_rng(seed)
+    f = ALIGN_CAM.fx
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+
+    def bearings(x, R, t, n):
+        c = x @ R.T + t
+        uv = c[:, :2] / c[:, 2:]
+        uv += gen.normal(0, 0.3 / f, uv.shape)
+        off = gen.random(n) < 0.1
+        uv[off] += (gen.uniform(5, 30, (int(off.sum()), 2)) / f
+                    * gen.choice([-1, 1], (int(off.sum()), 2)))
+        b = np.concatenate([uv, np.ones((n, 1))], -1)
+        return b / np.linalg.norm(b, axis=-1, keepdims=True)
+
+    cols, R0s, t0s = [], [], []
+    for b in range(B):
+        R = lie.so3_exp(torch.as_tensor(gen.normal(0, 0.05, 3))).numpy()
+        t = gen.normal(0, 0.1, 3)
+        pw = np.stack([gen.uniform(-1.5, 1.5, N), gen.uniform(-1, 1, N),
+                       gen.uniform(2.0, 2.3, N)], -1)
+        sw = np.stack([gen.uniform(-1.5, 1.5, M), gen.uniform(-1, 1, M),
+                       gen.uniform(2.0, 2.3, M)], -1)
+        ew = sw + gen.normal(0, 0.3, (M, 3)) * [1, 1, 0.1]
+        pw, sw, ew = [(x - t) @ R for x in (pw, sw, ew)]  # world frame
+        pt_valid = gen.random(N) > 0.15
+        seg_valid = gen.random(M) > 0.15
+        kind = kinds[b] if b < len(kinds) else None
+        if kind in ("lines", "empty"):
+            pt_valid[:] = False
+        if kind in ("points", "empty"):
+            seg_valid[:] = False
+        pt_f = bearings(pw, R, t, N)
+        if kind == "nan":
+            pt_valid[0] = True
+            pt_f[0] = np.nan
+        line = tpo.line_coeffs_from_bearings(T(bearings(sw, R, t, M)),
+                                             T(bearings(ew, R, t, M)))
+        cols.append((pt_f, gen.integers(0, 3, N), pw, pt_valid, line,
+                     gen.integers(0, 3, M), sw, ew, seg_valid))
+        dR, dt = lie.se3_exp(torch.as_tensor(gen.normal(0, [0.01] * 3 + [0.005] * 3)))
+        Ri, ti = lie.compose(dR, dt, torch.as_tensor(R), torch.as_tensor(t))
+        R0s.append(Ri.numpy())
+        t0s.append(ti.numpy())
+    inp = tpo.PoseOptInputs(
+        pt_f=T(np.stack([c[0] for c in cols])),
+        pt_level=torch.as_tensor(np.stack([c[1] for c in cols]), dtype=torch.int32,
+                                 device=device),
+        pt_pos_w=T(np.stack([c[2] for c in cols])),
+        pt_valid=torch.as_tensor(np.stack([c[3] for c in cols]), device=device),
+        seg_line=torch.stack([c[4] for c in cols]),
+        seg_level=torch.as_tensor(np.stack([c[5] for c in cols]),
+                                  dtype=torch.int32, device=device),
+        seg_spos_w=T(np.stack([c[6] for c in cols])),
+        seg_epos_w=T(np.stack([c[7] for c in cols])),
+        seg_valid=torch.as_tensor(np.stack([c[8] for c in cols]), device=device))
+    return ((inp, T(np.stack(R0s)), T(np.stack(t0s)), f),
+            dict(n_iter=10, n_iter_ref=3, reproj_thresh=2.0))
+
+
+# (batch, kinds of sequence): one sequence, the batch of eight with
+# sequences that stop apart (no valid row, a NaN first step), points only,
+# lines only
+_POSE_CASES = {"batch1": dict(B=1),
+               "batch8": dict(B=8, kinds=(None, "empty", "points", "lines",
+                                          "nan", None, None, None)),
+               "points_only": dict(B=2, kinds=("points", "points")),
+               "lines_only": dict(B=2, kinds=("lines", "lines"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iter_ref", [0, 3])
+@pytest.mark.parametrize("case", list(_POSE_CASES))
+def test_pose_opt_kernel_matches_plain(cuda, case, n_iter_ref):
+    """K4 against the plain twin on the same card inputs, held as
+    chip_smoke.py's gate holds it: the MAD scales and the observation
+    counts equal within rounding, each pass's iterations and the first
+    pass's strip equal but where the two sides part at a decision within
+    rounding (a chi2 tie, reported as a warning; a row at the threshold),
+    every pose at the plain twin's robust cost and its inlier masks the
+    strip at its own pose but for rows within 1e-6 of the threshold, chi2
+    and the information matrices within rounding where the two sides did
+    not part; and, on these synthetic frames, the poses of the sequences
+    whose iterations did not part within 1e-5.
+    Two launches give the same bits; an unbatched call dispatches to the
+    kernel."""
+    args, kw = _pose_problem(cuda, **_POSE_CASES[case])
+    kw["n_iter_ref"] = n_iter_ref
+    first = chip_smoke.k4_first_pass(args, kw)
+    before = tpo.launches
+    out_k, iters_k, trace = tpo.optimize_pose_cuda(*args, **kw)
+    assert tpo.launches == before + 1
+    out_p = tpo.optimize_pose_plain(*args, **kw)
+    iters_p = chip_smoke.pose_plain_iters(args, kw)
+    problem, rot, terr, partings, forgiven = chip_smoke.k4_compare(
+        args, kw, out_k, iters_k, trace, out_p, iters_p, first)
+    assert problem is None, problem
+    for b, ps, nk, np_, step in partings:
+        warnings.warn(f"{case}: sequence {b} pass {ps} ran {nk} iterations on "
+                      f"the card, {np_} in the plain twin (relative chi2 step "
+                      f"{step:.2e})")
+    # where the iterations did not part, the poses agree within 1e-5
+    same = [b for b in range(iters_p.shape[0])
+            if b not in {q[0] for q in partings}]
+    if same:
+        assert float((out_k.R - out_p.R)[same].abs().max()) <= chip_smoke.K4_ROT_ATOL
+        assert float((out_k.t - out_p.t)[same].abs().max()) <= chip_smoke.K4_T_ATOL
+    assert int(iters_p[:, 0].min()) >= 1
+    assert (int(iters_p[:, 1].min()) >= 1) == (n_iter_ref > 0)
+    # the outliers are stripped
+    n_in = out_p.pt_inlier.sum(-1) + out_p.seg_inlier.sum(-1)
+    n_obs = out_p.n_obs_pt + out_p.n_obs_seg
+    assert bool((n_in < n_obs)[n_obs > 20].all())
+    again, it2, tr2 = tpo.optimize_pose_cuda(*args, **kw)
+    for x, y in zip(out_k + (iters_k,), again + (it2,)):
+        assert torch.equal(x, y) if x.dtype != torch.float32 else \
+            torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+    if case == "batch1":
+        inp, R0, t0, focal = args
+        one = tpo.optimize_pose(tpo.PoseOptInputs(*[a[0] for a in inp]),
+                                R0[0], t0[0], focal, **kw)
+        assert tpo.launches == before + 3
         for x, y in zip(one, out_k):
             assert torch.equal(x, y[0])
 
